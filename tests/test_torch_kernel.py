@@ -1,0 +1,97 @@
+"""The CUDA resize-and-place kernel against its plain PyTorch version, on the
+card.  The kernel has no CPU mode, so every test here is marked ``cuda`` and
+skips on a host without a card.  Run them on a CUDA host with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernel.py -q
+
+(``--noconftest``: the shared conftest sets up JAX, which this file does not
+use).  Tolerance: none.  The kernel sums in the plain version's order and is
+built with ``-fmad=false``, so its store equals the plain version's bit for
+bit; a truncating or half-to-even store, or an orientation stride bug,
+differs somewhere.  Whole jobs are held to the float64 oracle within 1 step.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from imagestitching_tpu.config import CanvasLimits, StitchOptions
+from imagestitching_tpu.core import geometry, oracle
+from imagestitching_tpu.core.layout import ImageSpec, solve
+from imagestitching_tpu_torch.ops import cuda_resize, torch_compose
+
+pytestmark = pytest.mark.cuda
+
+_CASES = {
+    # 2x downscale: every tap weighs 0.5, many sums land on .5 (half-up)
+    "bilinear-halves": ([(400, 200, 1), (100, 100, 1)],
+                        dict(direction="horizontal"), None, 3),
+    "bilinear-up": ([(97, 61, 6), (400, 300, 1)], dict(mode="max", gap=3.5),
+                    None, 3),
+    "fractional-down": ([(800, 720, 1), (640, 800, 3)],
+                        dict(direction="horizontal", gap=9),
+                        CanvasLimits(max_side=600, max_pixels=10 ** 9,
+                                     max_supersample=1.0), 3),
+    **{f"orient{o}": ([(333, 217, o), (400, 260, 1)],
+                      dict(mode="max", gap=2.5), None, 3)
+       for o in range(1, 9)},
+    **{f"{k}-down": ([(900, 700, 6), (300, 200, 1)],
+                     dict(direction="horizontal", gap=4, filter=k), None, 3)
+       for k in ("triangle", "box", "lanczos3")},
+    "gray-c1": ([(500, 400, 1), (300, 350, 8)],
+                dict(direction="horizontal", gap=1.5), None, 1),
+}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _job(name):
+    shapes, kw, limits, c = _CASES[name]
+    plan = solve([ImageSpec(w, h, o) for w, h, o in shapes],
+                 StitchOptions(**kw), limits)
+    rng = np.random.default_rng(sum(map(ord, name)))
+    shape = (lambda w, h: (h, w)) if c == 1 else (lambda w, h: (h, w, c))
+    imgs = [rng.integers(0, 256, shape(w, h), np.uint8) for w, h, _ in shapes]
+    return plan, imgs
+
+
+def _operands(raw, p, kind, dev):
+    a = raw if raw.ndim == 3 else raw[:, :, None]
+    src = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    t = torch_compose.placement_taps(p, kind)
+    taps = [torch.from_numpy(x).to(dev) for x in
+            (t["rows"]["i0"], t["rows"]["w"], t["cols"]["i0"], t["cols"]["w"])]
+    return src, taps
+
+
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_kernel_equals_plain_version(card, name):
+    plan, imgs = _job(name)
+    checked = 0
+    for raw, p in zip(imgs, plan.placements):
+        if geometry.placement_copy_offsets(p, plan.filter) is not None:
+            continue
+        src, taps = _operands(raw, p, plan.filter, card)
+        canvas = torch.zeros((plan.canvas_h, plan.canvas_w, src.shape[2]),
+                             dtype=torch.uint8, device=card)
+        r0, r1 = p.row_span
+        c0, c1 = p.col_span
+        before = cuda_resize.launches
+        cuda_resize.resize_place(src, p.orientation, *taps, canvas, r0, c0)
+        assert cuda_resize.launches == before + 1
+        want = cuda_resize.resize_place_ref(src, p.orientation, *taps)
+        d = (canvas[r0:r1, c0:c1].int() - want.int()).abs()
+        assert int(d.max()) == 0, f"{name} #{p.index}: max |diff| {d.max()}"
+        # nothing stored outside the placement's region
+        canvas[r0:r1, c0:c1] = 0
+        assert int(canvas.count_nonzero()) == 0
+        checked += 1
+    assert checked, f"{name}: no resampled placement"
+    got = cuda_resize.stitch(plan, imgs, card).cpu().numpy()
+    want = oracle.stitch(plan, imgs)
+    assert int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max()) <= 1
