@@ -22,10 +22,24 @@ Phases, one line each; any failure exits non-zero and prints no result:
 6. kernel and plain-version times (CUDA events, and the profiler's device
    time) at config 3's shapes, and the kernel's store checked bit for bit
    against the plain version's;
-7. where a warm config-3 job's time goes on the device (torch.profiler).
+7. where a warm config-3 job's time goes on the device (torch.profiler);
+8. the batched kernel against its plain version on the card, bit for bit,
+   over phase 3's cases at B = 3 with other data per job, and against B
+   single launches of the single-job kernel;
+9. the batched path at real size: BASELINE config 5 (64 jobs of 9 images,
+   vertical, mode "min", gap 4) submitted from threads to
+   ``StitchServer`` on ``cuda``: one flush, one batched launch per
+   resampled placement (counted), every job equal to the single-job path
+   bit for bit, three jobs within 1 step of the oracle with the copy span
+   exact; flush wall, jobs/s and MP/s, and a profiled warm flush;
+10. batched kernel and plain-version times at config 5's shapes (B = 64);
+11. HTTP: ``StitchHTTPServer`` on localhost answers 4 concurrent
+    ``POST /stitch`` with what ``imagestitching_tpu_torch.stitch`` gives.
 
-The last two lines are a JSON record of the kernels and the device line
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Each kernel's launch count is read from its own path: phase 4 for the
+single-job kernel, phase 9 for the batched one, each with the counts set to
+0 just before.  The last two lines are a JSON record of the kernels and the
+device line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -76,6 +90,394 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
+def median_ms(fn, reps=20, inner=10):
+    """Per call of ``fn``, by CUDA events: the median over ``reps`` runs of
+    ``inner`` calls each, after 3 warm-up calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        samples.append(a.elapsed_time(b) / inner)
+    return statistics.median(samples)
+
+
+def device_ms(fn, reps=20):
+    """Per call of ``fn``: the device time torch.profiler records (the
+    union of its GPU activity), the host wall, and device time by
+    activity name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    by_name, busy, end = {}, 0.0, float("-inf")
+    for start, stop, name in spans:
+        ms = (stop - start) / 1e3 / reps
+        by_name[name] = by_name.get(name, 0.0) + ms
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy / 1e3 / reps, wall * 1e3 / reps, by_name
+
+
+def taps_on(p, kind, dev):
+    """A placement's taps (ri0, rw, ci0, cw) on ``dev``."""
+    import torch
+    from imagestitching_tpu_torch.ops import torch_compose
+
+    t = torch_compose.placement_taps(p, kind)
+    return tuple(torch.from_numpy(a).to(dev) for a in
+                 (t["rows"]["i0"], t["rows"]["w"],
+                  t["cols"]["i0"], t["cols"]["w"]))
+
+
+def src_on(raw, dev):
+    import torch
+
+    a = raw if raw.ndim == 3 else raw[..., None]
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def resampled(plan):
+    """The placements of ``plan`` that go through a kernel."""
+    from imagestitching_tpu.core import geometry
+
+    return [p for p in plan.placements
+            if p.row_span[1] > p.row_span[0]
+            and p.col_span[1] > p.col_span[0]
+            and geometry.placement_copy_offsets(p, plan.filter) is None]
+
+
+# BASELINE config 5 (BASELINE.md:37, benchmarks/run_all.py:111-121): 64
+# concurrent jobs of these 9 images (raw width, raw height), vertical, mode
+# "min", gap 4
+CONFIG5 = [(1920, 1080)] * 5 + [(1280, 720), (1600, 900), (1920, 1200),
+                                (1024, 768)]
+BATCH5 = 64
+REPLACES_BATCH = "imagestitching_tpu/ops/pallas_resize.py:629"
+
+
+def phase8_batch_vs_plain(cases, dev, batch=3) -> int:
+    """Kernel #2 against its plain version, bit for bit, over the phase-3
+    cases at B = ``batch`` with other data per job, and against ``batch``
+    single launches of kernel #1.  Returns the worst max |diff|."""
+    import torch
+    from imagestitching_tpu.core.layout import ImageSpec, solve
+    from imagestitching_tpu_torch.ops import cuda_resize
+
+    rng = np.random.default_rng(8)
+    worst_all, notes = 0, []
+    for name, shapes, opts, limits, c in cases:
+        plan = solve([ImageSpec(w, h, o) for w, h, o in shapes], opts,
+                     limits)
+        worst = ndiff = nsingle = 0
+        for p in resampled(plan):
+            src = torch.from_numpy(rng.integers(
+                0, 256, (batch, p.raw_h, p.raw_w, c), np.uint8)).to(dev)
+            taps = taps_on(p, plan.filter, dev)
+            canvas = torch.zeros((batch, plan.canvas_h, plan.canvas_w, c),
+                                 dtype=torch.uint8, device=dev)
+            r0, r1 = p.row_span
+            c0, c1 = p.col_span
+            cuda_resize.resize_place_batch(src, p.orientation, *taps, canvas,
+                                           r0, c0)
+            ref = cuda_resize.resize_place_batch_ref(src, p.orientation,
+                                                     *taps)
+            d = (canvas[:, r0:r1, c0:c1].int() - ref.int()).abs()
+            worst = max(worst, int(d.max()))
+            ndiff += int((d > 0).any(dim=3).sum())
+            for b in range(batch):
+                one = torch.zeros_like(canvas[b])
+                cuda_resize.resize_place(src[b], p.orientation, *taps, one,
+                                         r0, c0)
+                nsingle += int((one != canvas[b]).any(dim=2).sum())
+        check(worst == 0 and ndiff == 0 and nsingle == 0,
+              f"{name}: batched kernel vs plain max |diff| {worst}, {ndiff} "
+              f"differing pixels, {nsingle} pixels unlike {batch} single "
+              "launches (must be exact)")
+        worst_all = max(worst_all, worst)
+        notes.append(f"{name}:{worst}/{ndiff}/{nsingle}")
+    say(f"phase8 batched kernel (B={batch}, other data per job) vs plain and "
+        f"vs {batch} single launches (exact): {len(cases)} cases max |diff| "
+        f"{worst_all} | case:max_diff/differing_px/unlike_single "
+        + " ".join(notes))
+    return worst_all
+
+
+def phase9_config5(dev, smi, budget, shapes=CONFIG5, batch=BATCH5):
+    """BASELINE config 5 through ``StitchServer``: ``batch`` jobs submitted
+    from threads, one flush, one batched launch per resampled placement,
+    every job bit-equal to the single-job path and three within 1 step of
+    the oracle.  Returns (plan, host stacks, batched launches)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from imagestitching_tpu.core import geometry, oracle
+    from imagestitching_tpu.core.layout import ImageSpec, solve
+    from imagestitching_tpu_torch import (RuntimeConfig, StitchOptions,
+                                          StitchServer)
+    from imagestitching_tpu_torch.ops import cuda_resize
+
+    opts = StitchOptions(mode="min", gap=4, max_images=None)
+    plan = solve([ImageSpec(w, h) for w, h in shapes], opts)
+    n_res = len(resampled(plan))
+    copies = [p for p in plan.placements
+              if geometry.placement_copy_offsets(p, plan.filter) is not None]
+    # other data in every job, made on the card from a seed
+    g = torch.Generator(device=dev).manual_seed(5)
+    stacks = [torch.randint(0, 256, (batch, h, w, 3), generator=g,
+                            dtype=torch.uint8, device=dev).cpu().numpy()
+              for w, h in shapes]
+    jobs = [[s[j] for s in stacks] for j in range(batch)]
+    src_mb = sum(s.nbytes for s in stacks) / 1e6
+    canvas_mp = plan.canvas_w * plan.canvas_h / 1e6
+
+    def flush_round():
+        with ThreadPoolExecutor(16) as pool:
+            futs = list(pool.map(lambda job: server.submit(job, opts), jobs))
+        return [f.result(timeout=600) for f in futs]
+
+    server = StitchServer(max_batch=batch, max_wait_s=60.0,
+                          config=RuntimeConfig(device=str(dev),
+                                               budget=budget))
+    try:
+        cap = server._batch_cap(plan, 3)
+        t0 = time.perf_counter()
+        warm = server.warmup([(h, w) for w, h in shapes], opts,
+                             batch_sizes=(batch,))
+        warm_s = time.perf_counter() - t0
+        check(warm["batches"] == [batch], f"warmup ran {warm['batches']}, "
+              f"cap {cap}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = server.stats()
+        cuda_resize.launches = cuda_resize.batch_launches = 0
+        t0 = time.perf_counter()
+        outs = flush_round()
+        wall = time.perf_counter() - t0
+        launches_main = cuda_resize.batch_launches
+        single = cuda_resize.launches
+        after = server.stats()
+        peak_mb = torch.cuda.max_memory_allocated(dev) / 1e6
+        flushes = after["batches"] - before["batches"]
+        check(flushes == 1 and after["jobs"] - before["jobs"] == batch,
+              f"{batch} jobs in {flushes} flushes (cap {cap}), expected 1")
+        check(launches_main == n_res and single == 0,
+              f"batched launches {launches_main}, single {single}; "
+              f"expected {n_res} and 0")
+        check(all(o.shape == (plan.canvas_h, plan.canvas_w, 3)
+                  for o in outs), f"canvas {outs[0].shape}")
+        n_unequal = sum(
+            not np.array_equal(o, cuda_resize.stitch(plan, job,
+                                                     dev).cpu().numpy())
+            for o, job in zip(outs, jobs))
+        check(n_unequal == 0, f"{n_unequal} of {batch} served jobs differ "
+              "from the single-job path")
+        onotes = []
+        for j in (0, batch // 2, batch - 1):
+            diff = np.abs(outs[j].astype(np.int16)
+                          - oracle.stitch(plan, jobs[j]).astype(np.int16))
+            copy_max = max((int(diff[p.row_span[0]:p.row_span[1],
+                                     p.col_span[0]:p.col_span[1]].max())
+                            for p in copies), default=0)
+            check(int(diff.max()) <= 1 and copy_max == 0,
+                  f"config 5 job {j} vs oracle {int(diff.max())}, copy "
+                  f"spans {copy_max}")
+            onotes.append(f"job{j}:{int(diff.max())}/{copy_max}")
+        del outs
+        busy, pwall, by_name = device_ms(flush_round, reps=1)
+    finally:
+        server.close()
+    groups = {"Memcpy HtoD": 0.0, "resize_place": 0.0, "Memcpy DtoH": 0.0}
+    for name, ms in by_name.items():
+        key = next((k for k in groups if k in name), "other")
+        groups[key] = groups.get(key, 0.0) + ms
+    say(f"phase9 config5 via StitchServer on cuda ({batch} jobs x "
+        f"{len(shapes)} images, canvas {plan.canvas_w}x{plan.canvas_h}x3, "
+        f"{n_res} resampled + {len(copies)} copy, sources {src_mb:.1f} MB, "
+        f"batch cap {cap}): 1 flush, batched launches {launches_main}, "
+        f"single launches {single} | every job equal to cuda_resize.stitch "
+        f"| oracle max |diff|/copy spans {' '.join(onotes)} | host wall "
+        f"{wall:.4f} s submit to last result, flush "
+        f"{after['flush_s'] - before['flush_s']:.4f} s (np.stack "
+        f"{after['stack_s'] - before['stack_s']:.4f} s), "
+        f"{batch / wall:.4f} jobs/s, {batch * canvas_mp / wall:.4f} output "
+        f"MP/s | warmup {warm_s:.4f} s | peak device memory {peak_mb:.1f} "
+        f"MB | {smi}")
+    say(f"phase9 warm flush under torch.profiler ({batch} jobs): host wall "
+        f"{pwall:.4f} ms, device busy {busy:.4f} ms, idle share "
+        f"{1 - busy / pwall if pwall else float('nan'):.4f} | device ms "
+        + " ".join(f"{k}={v:.4f}" for k, v in groups.items()) + f" | {smi}")
+    return plan, stacks, launches_main
+
+
+def phase10_batch_times(dev, smi, plan, stacks):
+    """Kernel #2 and its plain version timed at config 5's placements and
+    batch size, its store checked bit for bit.  Returns (max |diff|,
+    kernel ms, plain ms) summed over the placements."""
+    import torch
+    from imagestitching_tpu_torch.ops import cuda_resize
+
+    batch = stacks[0].shape[0]
+    canvas = torch.zeros((batch, plan.canvas_h, plan.canvas_w, 3),
+                         dtype=torch.uint8, device=dev)
+    k_total = p_total = kd_total = pd_total = 0.0
+    worst = ndiff = 0
+    rows = []
+    for p in resampled(plan):
+        src = torch.from_numpy(stacks[p.index]).to(dev)
+        taps = taps_on(p, plan.filter, dev)
+        r0, r1 = p.row_span
+        c0, c1 = p.col_span
+
+        def kernel(src=src, taps=taps, p=p, r0=r0, c0=c0):
+            cuda_resize.resize_place_batch(src, p.orientation, *taps, canvas,
+                                           r0, c0)
+
+        def plain(src=src, taps=taps, p=p, r0=r0, r1=r1, c0=c0, c1=c1):
+            canvas[:, r0:r1, c0:c1] = cuda_resize.resize_place_batch_ref(
+                src, p.orientation, *taps)
+
+        plain_a = median_ms(plain, reps=5, inner=2)
+        kern_a = median_ms(kernel, reps=5, inner=2)
+        got = canvas[:, r0:r1, c0:c1].clone()
+        plain()
+        d = (got.int() - canvas[:, r0:r1, c0:c1].int()).abs()
+        worst = max(worst, int(d.max()))
+        ndiff += int((d > 0).any(dim=3).sum())
+        del got, d
+        kern_b = median_ms(kernel, reps=5, inner=2)
+        plain_b = median_ms(plain, reps=5, inner=2)
+        k_ms = statistics.median([kern_a, kern_b])
+        p_ms = statistics.median([plain_a, plain_b])
+        k_dev = device_ms(kernel, reps=3)[0]
+        p_dev = device_ms(plain, reps=3)[0]
+        k_total += k_ms
+        p_total += p_ms
+        kd_total += k_dev
+        pd_total += p_dev
+        rows.append(f"#{p.index} {p.raw_w}x{p.raw_h}->{c1 - c0}x{r1 - r0} "
+                    f"kernel {k_ms:.4f} ({k_dev:.4f}) plain {p_ms:.4f} "
+                    f"({p_dev:.4f})")
+    check(worst == 0 and ndiff == 0, f"config 5 batched kernel vs plain max "
+          f"|diff| {worst}, {ndiff} differing pixels (must be exact)")
+    say(f"phase10 batched times at B={batch} (ms per launch; CUDA events, "
+        f"median of 5x2, order plain kernel kernel plain; in brackets the "
+        f"profiler's device busy time) on {smi}: " + " | ".join(rows)
+        + f" | total kernel {k_total:.4f} ({kd_total:.4f}) plain "
+        f"{p_total:.4f} ({pd_total:.4f}) | kernel vs plain max |diff| "
+        f"{worst}, differing px {ndiff}")
+    return worst, k_total, p_total
+
+
+def _multipart(blobs):
+    boundary = "chipsmokeboundary"
+    parts = [(f"--{boundary}\r\nContent-Disposition: form-data; "
+              f'name="f{i}"; filename="{i}"\r\n'
+              "Content-Type: application/octet-stream\r\n\r\n").encode()
+             + b + b"\r\n" for i, b in enumerate(blobs)]
+    body = b"".join(parts) + f"--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def phase11_http(dev, smi):
+    """``StitchHTTPServer`` on localhost: 4 concurrent ``POST /stitch``
+    (PNG parts of mixed sizes, one JPEG with EXIF orientation 6), each
+    answer equal to ``imagestitching_tpu_torch.stitch`` on the same bytes;
+    ``/healthz`` names the card and ``/stats`` counts the jobs."""
+    import io
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+    from urllib.parse import parse_qs
+
+    import torch
+    from PIL import Image
+
+    import imagestitching_tpu_torch as itt
+    from imagestitching_tpu.imgio import codec
+    from imagestitching_tpu_torch import RuntimeConfig, StitchHTTPServer
+    from imagestitching_tpu_torch.serve.http import _options_from
+
+    rng = np.random.default_rng(11)
+
+    def png(w, h):
+        return codec.encode_bytes(rng.integers(0, 256, (h, w, 3), np.uint8),
+                                  "png")
+
+    buf = io.BytesIO()
+    img = Image.fromarray(rng.integers(0, 256, (300, 400, 3), np.uint8))
+    exif = img.getexif()
+    exif[274] = 6                      # rotate 90: displayed 300 x 400
+    img.save(buf, "JPEG", quality=95, exif=exif)
+    rotated = buf.getvalue()
+    check(codec.decode(rotated)[1] == 6, "EXIF orientation lost")
+    requests = [
+        ("direction=vertical&mode=min&gap=4",
+         [png(640, 480), png(800, 600), png(500, 700)]),
+        ("direction=vertical&mode=min&gap=4",
+         [png(640, 480), png(800, 600), png(500, 700)]),
+        ("direction=horizontal&mode=max&gap=2",
+         [png(300, 200), rotated, png(256, 256)]),
+        ("direction=horizontal&gap=0", [png(1024, 768), png(1280, 720)]),
+    ]
+    cfg = RuntimeConfig(device=str(dev))
+    with StitchHTTPServer(port=0, max_wait_s=0.05, config=cfg) as srv:
+        base = f"http://{srv.host}:{srv.port}"
+
+        def post(req):
+            body, ctype = _multipart(req[1])
+            r = urllib.request.Request(f"{base}/stitch?{req[0]}", data=body,
+                                       headers={"Content-Type": ctype})
+            with urllib.request.urlopen(r, timeout=300) as resp:
+                return resp.status, resp.read()
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(requests)) as pool:
+            answers = list(pool.map(post, requests))
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
+            stats = json.loads(r.read())["server"]
+    shapes = []
+    for (query, blobs), (status, data) in zip(requests, answers):
+        check(status == 200, f"POST /stitch?{query}: {status}")
+        got = codec.decode(data)[0]
+        options, _ = _options_from(parse_qs(query))
+        want = itt.stitch(blobs, options=options, config=cfg)
+        check(np.array_equal(got, want),
+              f"POST /stitch?{query} differs from stitch")
+        shapes.append(f"{got.shape[1]}x{got.shape[0]}")
+    name = torch.cuda.get_device_name(dev)
+    check(name in health["backend"], f"/healthz says {health}")
+    check(stats["jobs"] >= len(requests) and stats["failed"] == 0,
+          f"/stats says {stats}")
+    say(f"phase11 http: {len(requests)} concurrent POST /stitch answered "
+        f"200 in {wall:.4f} s, each equal to imagestitching_tpu_torch.stitch "
+        f"({' '.join(shapes)}; one JPEG with EXIF 6) | /healthz backend "
+        f"{health['backend']!r} | /stats jobs {stats['jobs']} batches "
+        f"{stats['batches']} failed {stats['failed']}")
+
+
 def main() -> None:
     # ---- phase 1: environment
     import torch
@@ -99,7 +501,6 @@ def main() -> None:
     from imagestitching_tpu.imgio import codec
     from imagestitching_tpu_torch import RuntimeConfig, StitchOptions
     from imagestitching_tpu_torch.config import budget_from_device
-    from imagestitching_tpu_torch.ops import torch_compose
     check("jax" not in sys.modules, "the port imported jax")
 
     # ---- phase 2: build the kernel from the checkout's sources
@@ -116,29 +517,13 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
 
-    def taps_on(p, kind):
-        t = torch_compose.placement_taps(p, kind)
-        return tuple(torch.from_numpy(a).to(dev) for a in
-                     (t["rows"]["i0"], t["rows"]["w"],
-                      t["cols"]["i0"], t["cols"]["w"]))
-
-    def src_on(raw):
-        a = raw if raw.ndim == 3 else raw[:, :, None]
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    def resampled(plan):
-        return [p for p in plan.placements
-                if p.row_span[1] > p.row_span[0]
-                and p.col_span[1] > p.col_span[0]
-                and geometry.placement_copy_offsets(p, plan.filter) is None]
-
     def kernel_vs_plain(plan, imgs):
         """Max |diff| and differing pixels of the kernel's store against
         the plain version, over every resampled placement of ``plan``."""
         worst, ndiff = 0, 0
         for p in resampled(plan):
-            src = src_on(imgs[p.index])
-            taps = taps_on(p, plan.filter)
+            src = src_on(imgs[p.index], dev)
+            taps = taps_on(p, plan.filter, dev)
             canvas = torch.zeros((plan.canvas_h, plan.canvas_w,
                                   src.shape[2]), dtype=torch.uint8,
                                  device=dev)
@@ -220,7 +605,7 @@ def main() -> None:
     check(len(copies) == 4 and per_job == 5,
           f"config 3 plan: {len(copies)} copies, {per_job} resampled")
     walls, deltas, phases, out = [], [], [], None
-    cuda_resize.launches = 0
+    cuda_resize.launches = cuda_resize.batch_launches = 0
     for _ in range(3):
         before = cuda_resize.launches
         t0 = time.perf_counter()
@@ -234,6 +619,8 @@ def main() -> None:
     launches_main = cuda_resize.launches
     check(deltas == [per_job] * 3, f"kernel launches per job {deltas}, "
           f"expected {per_job}")
+    check(cuda_resize.batch_launches == 0, "the single-job path launched "
+          "the batched kernel")
     check(out.shape == (1080, 12962, 3), f"canvas {out.shape}")
     want = oracle.stitch(plan3, [a for a, _ in items])
     diff = np.abs(out.astype(np.int16) - want.astype(np.int16))
@@ -261,57 +648,14 @@ def main() -> None:
         f"decoded equal to phase 4 | encode_s {m5.encode_s:.4f}")
 
     # ---- phase 6: kernel and plain times at config 3's shapes
-    def median_ms(fn, reps=20, inner=10):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        samples = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(inner):
-                fn()
-            b.record()
-            b.synchronize()
-            samples.append(a.elapsed_time(b) / inner)
-        return statistics.median(samples)
-
-    def device_ms(fn, reps=20):
-        """Per call of ``fn``: the device time torch.profiler records (the
-        union of its GPU activity), the host wall, and device time by
-        activity name."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        by_name, busy, end = {}, 0.0, float("-inf")
-        for start, stop, name in spans:
-            ms = (stop - start) / 1e3 / reps
-            by_name[name] = by_name.get(name, 0.0) + ms
-            busy += max(0.0, stop - max(start, end))
-            end = max(end, stop)
-        return busy / 1e3 / reps, wall * 1e3 / reps, by_name
-
     imgs3 = [a for a, _ in items]
     canvas = torch.zeros((plan3.canvas_h, plan3.canvas_w, 3),
                          dtype=torch.uint8, device=dev)
     k_total = p_total = kd_total = pd_total = 0.0
     rows, worst6, ndiff6 = [], 0, 0
     for p in resampled(plan3):
-        src = src_on(imgs3[p.index])
-        taps = taps_on(p, plan3.filter)
+        src = src_on(imgs3[p.index], dev)
+        taps = taps_on(p, plan3.filter, dev)
         r0, r1 = p.row_span
         c0, c1 = p.col_span
 
@@ -365,11 +709,23 @@ def main() -> None:
         f"share {1 - busy / wall if wall else float('nan'):.4f} | device "
         "ms/job " + " ".join(f"{k}={v:.4f}" for k, v in groups.items()))
 
+    # ---- phases 8-11: batched serving (kernel #2, StitchServer, HTTP)
+    worst8 = phase8_batch_vs_plain(cases, dev)
+    plan5, stacks5, launches5 = phase9_config5(dev, smi, budget_from_device())
+    worst10, kb_total, pb_total = phase10_batch_times(dev, smi, plan5,
+                                                      stacks5)
+    del stacks5
+    phase11_http(dev, smi)
+
     record = {"kernels": [{
         "name": "resize_place", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches_main,
         "max_abs_err": max(worst_all, worst6),
-        "ms": round(k_total, 6), "plain_ms": round(p_total, 6)}]}
+        "ms": round(k_total, 6), "plain_ms": round(p_total, 6)}, {
+        "name": "resize_place_batch", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES_BATCH,
+        "launches": launches5, "max_abs_err": max(worst8, worst10),
+        "ms": round(kb_total, 6), "plain_ms": round(pb_total, 6)}]}
     say(json.dumps(record))
     say(f"gpu: {smi}")
     say(json.dumps({"ok": True, "device": {

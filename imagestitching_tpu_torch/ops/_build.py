@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``) at first use.
 
-The twin of ``pallas_resize._build_call_static``: where the JAX package
-lowers a ``pl.pallas_call`` through Mosaic, the port compiles its CUDA C++
+The twin of ``pallas_resize._build_call_static`` (single-job and batched):
+where the JAX package lowers a ``pl.pallas_call`` through Mosaic, the port
+compiles its CUDA C++
 sources with ``nvcc`` into a shared library with a plain C interface and
 loads it with ``ctypes``.  No PyTorch headers are compiled, so a build takes
 seconds.  The library lands in ``imagestitching_tpu_torch/_build/`` under a
@@ -110,6 +111,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i64, i64, i64, i64,               # canvas, H, W, r0, c0
         p]                                   # stream
     lib.resize_place_launch.restype = i32
+    lib.resize_place_batch_launch.argtypes = [
+        p, i32, i64,                         # src, batch, src job stride
+        i64, i64, i32, i32,                  # H, W, C, orientation
+        p, p, i32, i32,                      # ri0, rw, n_rows, k_rows
+        p, p, i32, i32,                      # ci0, cw, n_cols, k_cols
+        p, i64,                              # canvas, canvas job stride
+        i64, i64, i64, i64,                  # canvas H, W, r0, c0
+        p]                                   # stream
+    lib.resize_place_batch_launch.restype = i32
     lib.resize_place_error_string.argtypes = [i32]
     lib.resize_place_error_string.restype = ctypes.c_char_p
 

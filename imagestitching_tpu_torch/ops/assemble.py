@@ -9,7 +9,7 @@ writes its region (a copy slice, or the kernel's store) straight into it.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,11 +26,12 @@ def job_channels(plan: LayoutPlan, images: Sequence[np.ndarray]) -> int:
     return a0.shape[2] if a0.ndim == 3 else 1
 
 
-def new_canvas(plan: LayoutPlan, channels: int, device) -> torch.Tensor:
-    """``(canvas_h, canvas_w, channels)`` uint8 on ``device``, background
-    filled."""
-    canvas = torch.empty((plan.canvas_h, plan.canvas_w, channels),
-                         dtype=torch.uint8, device=device)
+def new_canvas(plan: LayoutPlan, channels: int, device,
+               batch_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+    """``(*batch_shape, canvas_h, canvas_w, channels)`` uint8 on ``device``,
+    background filled (twin of ``assemble_canvas(batch_shape=)``)."""
+    canvas = torch.empty((*batch_shape, plan.canvas_h, plan.canvas_w,
+                          channels), dtype=torch.uint8, device=device)
     bg = plan.background[:channels]
     if len(set(bg)) == 1:
         canvas.fill_(int(bg[0]))

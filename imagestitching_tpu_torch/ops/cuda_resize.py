@@ -1,24 +1,33 @@
-"""Fused resize-and-place on the card: the CUDA kernel, its plain version, and
-the whole-job engine.
+"""Fused resize-and-place on the card: the CUDA kernels, their plain version,
+and the placement loop that serves one job and a batch of jobs.
 
 Port of ``imagestitching_tpu/ops/pallas_resize.py:882-1015`` (``_orient_chw``,
-``_stitch_jit``, ``CompiledPallasStitch``, ``get_compiled``, ``stitch``).  The
-kernel itself is ``csrc/resize_place.cu``; it replaces
-``pallas_resize._make_kernel`` as launched by ``resize_place_one``.
+``_stitch_jit``, ``CompiledPallasStitch``, ``get_compiled``, ``stitch``) and
+of the batched engine ``parallel/batch._batched_pallas`` (:33-57).  The
+kernels are ``csrc/resize_place.cu``; they replace
+``pallas_resize._make_kernel`` as launched by ``resize_place_one`` (#1) and
+``resize_place_batch`` (#2).
 
-* :func:`resize_place` is the kernel's wrapper.  For tensors on the CPU it
-  runs the plain version, :func:`resize_place_ref`; for CUDA tensors it
-  launches the kernel or raises.  There is no fallback between the two.
-* ``launches`` counts kernel launches, so a run can show that its main path
-  went through the kernel.
-* :func:`stitch` runs one job: identity placements are slices of the
-  oriented source (as at ``_stitch_jit``), every other drawn placement is
-  resampled by :func:`resize_place` straight into the canvas.
+* :func:`resize_place` (one job) and :func:`resize_place_batch` (B stacked
+  jobs sharing one placement's taps, one launch) are the kernels' wrappers.
+  For tensors on the CPU they run the plain version, :func:`resize_place_ref`;
+  for CUDA tensors they launch the kernel or raise.  There is no fallback
+  between the two.
+* ``launches`` and ``batch_launches`` count kernel launches, so a run can
+  show that its main path went through the kernels.
+* :func:`stitch` runs one job and :func:`stitch_batch` B jobs of one plan,
+  through one placement loop: identity placements are slices of the oriented
+  source (as at ``_stitch_jit`` and ``batch.py:44-50``), every other drawn
+  placement is resampled by the kernel straight into the canvas.  With
+  ``plain=True`` the loop is the cross-check engine instead: every drawn
+  placement goes through the plain version, with no copy shortcut (the twin
+  of ``xla_compose._stitch_impl`` and ``batch._batched_xla``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,37 +41,52 @@ from .assemble import job_channels, new_canvas, source_tensor
 
 #: Kernel launches by :func:`resize_place` in this process.
 launches = 0
+#: Kernel launches by :func:`resize_place_batch` in this process.
+batch_launches = 0
+
+#: The batched kernel's z-grid bound (``gridDim.z``).
+MAX_BATCH = 65535
 
 Taps = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 class _Step(NamedTuple):
-    """How one drawn placement is made: a copy slice at ``copy`` (source
-    row, col offsets into the oriented source), or a kernel launch with
-    device ``taps`` (ri0, rw, ci0, cw)."""
+    """How one drawn placement is made: device ``taps`` (ri0, rw, ci0, cw)
+    for the resample, and for an identity placement ``copy``, the source
+    row and col offsets into the oriented source of its slice."""
 
     copy: Optional[Tuple[int, int]]
-    taps: Optional[Taps]
+    taps: Taps
 
 
 def resize_place_ref(src: torch.Tensor, orientation: int, ri0: torch.Tensor,
                      rw: torch.Tensor, ci0: torch.Tensor,
                      cw: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the uint8 ``(n_rows, n_cols, C)``
-    region that the kernel stores into the canvas."""
+    """Plain PyTorch version of both kernels: the uint8 ``(n_rows, n_cols,
+    C)`` region that the kernel stores into the canvas, or for a ``(B, H, W,
+    C)`` batch the ``(B, n_rows, n_cols, C)`` regions."""
     return torch_compose.resample(src, orientation, ri0, rw, ci0, cw)
 
 
-def _check(src: torch.Tensor, ri0: torch.Tensor, rw: torch.Tensor,
-           ci0: torch.Tensor, cw: torch.Tensor, canvas: torch.Tensor,
-           r0: int, c0: int) -> None:
+#: The batched kernel's plain version: the same function on a batch.
+resize_place_batch_ref = resize_place_ref
+
+
+def _check(batched: bool, src: torch.Tensor, ri0: torch.Tensor,
+           rw: torch.Tensor, ci0: torch.Tensor, cw: torch.Tensor,
+           canvas: torch.Tensor, r0: int, c0: int) -> None:
     if src.dtype != torch.uint8 or canvas.dtype != torch.uint8:
         raise ValueError("src and canvas must be uint8")
-    if src.ndim != 3 or canvas.ndim != 3:
-        raise ValueError("src and canvas must be HWC")
-    if src.shape[2] != canvas.shape[2] or src.shape[2] not in (1, 3):
-        raise ValueError(f"channels: src {src.shape[2]}, canvas "
-                         f"{canvas.shape[2]} (1 or 3, equal)")
+    ndim, layout = (4, "BHWC") if batched else (3, "HWC")
+    if src.ndim != ndim or canvas.ndim != ndim:
+        raise ValueError(f"src and canvas must be {layout}")
+    if batched and (src.shape[0] != canvas.shape[0]
+                    or not 1 <= src.shape[0] <= MAX_BATCH):
+        raise ValueError(f"batch: src {src.shape[0]}, canvas "
+                         f"{canvas.shape[0]} (equal, 1 to {MAX_BATCH})")
+    if src.shape[-1] != canvas.shape[-1] or src.shape[-1] not in (1, 3):
+        raise ValueError(f"channels: src {src.shape[-1]}, canvas "
+                         f"{canvas.shape[-1]} (1 or 3, equal)")
     if not (src.is_contiguous() and canvas.is_contiguous()):
         raise ValueError("src and canvas must be contiguous")
     for name, t, dt, nd in (("ri0", ri0, torch.int32, 1),
@@ -78,10 +102,53 @@ def _check(src: torch.Tensor, ri0: torch.Tensor, rw: torch.Tensor,
     if rw.shape[0] != ri0.shape[0] or cw.shape[0] != ci0.shape[0]:
         raise ValueError("tap starts and weights differ in length")
     n_rows, n_cols = ri0.shape[0], ci0.shape[0]
-    if (r0 < 0 or c0 < 0 or r0 + n_rows > canvas.shape[0]
-            or c0 + n_cols > canvas.shape[1]):
+    canvas_h, canvas_w = canvas.shape[-3], canvas.shape[-2]
+    if r0 < 0 or c0 < 0 or r0 + n_rows > canvas_h or c0 + n_cols > canvas_w:
         raise ValueError(f"region {n_rows}x{n_cols} at ({r0}, {c0}) leaves "
-                         f"the {canvas.shape[0]}x{canvas.shape[1]} canvas")
+                         f"the {canvas_h}x{canvas_w} canvas")
+
+
+def _place(batched: bool, src: torch.Tensor, orientation: int,
+           ri0: torch.Tensor, rw: torch.Tensor, ci0: torch.Tensor,
+           cw: torch.Tensor, canvas: torch.Tensor, r0: int, c0: int) -> bool:
+    """The body of both wrappers; True when it launched a kernel."""
+    _check(batched, src, ri0, rw, ci0, cw, canvas, r0, c0)
+    if orientation not in range(9):
+        raise ValueError(f"invalid EXIF orientation {orientation}")
+    n_rows, n_cols = ri0.shape[0], ci0.shape[0]
+    if n_rows == 0 or n_cols == 0:
+        return False
+    if src.device.type == "cpu":
+        canvas[..., r0:r0 + n_rows, c0:c0 + n_cols, :] = resize_place_ref(
+            src, orientation, ri0, rw, ci0, cw)
+        return False
+    if src.device.type != "cuda":
+        raise ValueError(f"resize_place runs on cpu or cuda, not {src.device}")
+    from . import _build
+
+    lib = _build.load()
+    ptr = ctypes.c_void_p
+    h, w, c = src.shape[-3:]
+    taps = (ptr(ri0.data_ptr()), ptr(rw.data_ptr()), n_rows, rw.shape[1],
+            ptr(ci0.data_ptr()), ptr(cw.data_ptr()), n_cols, cw.shape[1])
+    canvas_hw = (canvas.shape[-3], canvas.shape[-2], r0, c0)
+    # the launch goes to the current device; the context restores the
+    # caller's device afterwards
+    with torch.cuda.device(src.device):
+        stream = ptr(torch.cuda.current_stream().cuda_stream)
+        if batched:
+            err = lib.resize_place_batch_launch(
+                ptr(src.data_ptr()), src.shape[0], src.stride(0), h, w, c,
+                orientation, *taps, ptr(canvas.data_ptr()), canvas.stride(0),
+                *canvas_hw, stream)
+        else:
+            err = lib.resize_place_launch(
+                ptr(src.data_ptr()), h, w, c, orientation, *taps,
+                ptr(canvas.data_ptr()), *canvas_hw, stream)
+    if err != 0:
+        raise RuntimeError("resize_place kernel launch failed: "
+                           + lib.resize_place_error_string(err).decode())
+    return True
 
 
 def resize_place(src: torch.Tensor, orientation: int, ri0: torch.Tensor,
@@ -91,61 +158,50 @@ def resize_place(src: torch.Tensor, orientation: int, ri0: torch.Tensor,
     K-tap row taps ``(ri0, rw)`` and column taps ``(ci0, cw)`` and store the
     uint8 result into ``canvas[r0:r0+n_rows, c0:c0+n_cols]`` in place."""
     global launches
-    _check(src, ri0, rw, ci0, cw, canvas, r0, c0)
-    if orientation not in range(9):
-        raise ValueError(f"invalid EXIF orientation {orientation}")
-    n_rows, n_cols = ri0.shape[0], ci0.shape[0]
-    if n_rows == 0 or n_cols == 0:
-        return
-    if src.device.type == "cpu":
-        canvas[r0:r0 + n_rows, c0:c0 + n_cols] = resize_place_ref(
-            src, orientation, ri0, rw, ci0, cw)
-        return
-    if src.device.type != "cuda":
-        raise ValueError(f"resize_place runs on cpu or cuda, not {src.device}")
-    from . import _build
+    if _place(False, src, orientation, ri0, rw, ci0, cw, canvas, r0, c0):
+        launches += 1
 
-    lib = _build.load()
-    ptr = ctypes.c_void_p
-    # the launch goes to the current device; the context restores the
-    # caller's device afterwards
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.resize_place_launch(
-            ptr(src.data_ptr()), src.shape[0], src.shape[1], src.shape[2],
-            orientation,
-            ptr(ri0.data_ptr()), ptr(rw.data_ptr()), n_rows, rw.shape[1],
-            ptr(ci0.data_ptr()), ptr(cw.data_ptr()), n_cols, cw.shape[1],
-            ptr(canvas.data_ptr()), canvas.shape[0], canvas.shape[1], r0, c0,
-            ptr(stream))
-    if err != 0:
-        raise RuntimeError("resize_place kernel launch failed: "
-                           + lib.resize_place_error_string(err).decode())
-    launches += 1
+
+def resize_place_batch(src_bhwc: torch.Tensor, orientation: int,
+                       ri0: torch.Tensor, rw: torch.Tensor, ci0: torch.Tensor,
+                       cw: torch.Tensor, canvas_bhwc: torch.Tensor, r0: int,
+                       c0: int) -> None:
+    """:func:`resize_place` for B stacked jobs that share the placement:
+    ``src_bhwc (B, H, W, C)``, ``canvas_bhwc (B, canvas_h, canvas_w, C)``,
+    one kernel launch for the whole batch."""
+    global batch_launches
+    if _place(True, src_bhwc, orientation, ri0, rw, ci0, cw, canvas_bhwc,
+              r0, c0):
+        batch_launches += 1
 
 
 # ---------------------------------------------------------------------------
-# Whole-job engine
+# The placement loop: one job, or a batch of jobs of one plan
 # ---------------------------------------------------------------------------
 
 #: Steps of recent plans, keyed on ``(plan.signature(), device)``, never on
 #: ``shape_signature()``: taps follow the fractional rects, and plans that
 #: share spans but not sub-pixel phase must not share taps.  The oldest
-#: entry goes once there are ``_STEPS_MAX``.
+#: entry goes once there are ``_STEPS_MAX``.  The lock keeps the server's
+#: worker thread and callers of :func:`stitch` on other threads apart.
 _steps_cache: Dict[tuple, List[Optional[_Step]]] = {}
+_steps_lock = threading.Lock()
 _STEPS_MAX = 16
 
 
-def _steps(plan: LayoutPlan, device: torch.device) -> List[Optional[_Step]]:
-    """Per placement: None (zero area, draws nothing), a copy, or the
-    kernel's taps on ``device``."""
+def plan_steps(plan: LayoutPlan,
+               device: torch.device) -> List[Optional[_Step]]:
+    """Per placement: None (zero area, draws nothing) or its step, with the
+    taps on ``device``."""
     key = (plan.signature(), device)
-    steps = _steps_cache.get(key)
+    with _steps_lock:
+        steps = _steps_cache.get(key)
     if steps is None:
         steps = _make_steps(plan, device)
-        _steps_cache[key] = steps
-        if len(_steps_cache) > _STEPS_MAX:
-            del _steps_cache[next(iter(_steps_cache))]
+        with _steps_lock:
+            _steps_cache[key] = steps
+            if len(_steps_cache) > _STEPS_MAX:
+                del _steps_cache[next(iter(_steps_cache))]
     return steps
 
 
@@ -158,39 +214,95 @@ def _make_steps(plan: LayoutPlan,
         if r1 <= r0 or c1 <= c0:
             steps.append(None)
             continue
-        copy = geometry.placement_copy_offsets(p, plan.filter)
-        if copy is not None:
-            steps.append(_Step(copy, None))
-            continue
         t = torch_compose.placement_taps(p, plan.filter)
-        steps.append(_Step(None, tuple(
-            torch.from_numpy(a).to(device)
-            for a in (t["rows"]["i0"], t["rows"]["w"],
-                      t["cols"]["i0"], t["cols"]["w"]))))
+        steps.append(_Step(
+            geometry.placement_copy_offsets(p, plan.filter),
+            tuple(torch.from_numpy(a).to(device)
+                  for a in (t["rows"]["i0"], t["rows"]["w"],
+                            t["cols"]["i0"], t["cols"]["w"]))))
     return steps
 
 
-def stitch(plan: LayoutPlan, images: Sequence[np.ndarray],
-           device) -> torch.Tensor:
-    """One job on ``device``: the uint8 HWC canvas tensor.  Work is enqueued
-    on the current stream; the caller synchronises."""
-    device = torch.device(device)
-    channels = job_channels(plan, images)
-    canvas = new_canvas(plan, channels, device)
-    for raw, p, step in zip(images, plan.placements,
-                            _steps(plan, device)):
+def _compose(plan: LayoutPlan, srcs: Sequence[torch.Tensor],
+             canvas: torch.Tensor, steps: Sequence[Optional[_Step]],
+             plain: bool) -> None:
+    """Draw every placement into ``canvas``: HWC sources and canvas for one
+    job (kernel #1), ``(B, H, W, C)`` ones for a batch (kernel #2)."""
+    place = resize_place_batch if canvas.ndim == 4 else resize_place
+    for src, p, step in zip(srcs, plan.placements, steps):
         if step is None:
             continue
-        src = source_tensor(raw, p, channels, device)
         r0, r1 = p.row_span
         c0, c1 = p.col_span
-        if step.copy is not None:
+        if plain:
+            canvas[..., r0:r1, c0:c1, :] = resize_place_ref(
+                src, p.orientation, *step.taps)
+        elif step.copy is not None:
             # identity taps on both axes: the resample IS a slice of the
             # oriented source -- no kernel
             sr, sc = step.copy
             oriented = torch_compose.orient(src, p.orientation)
-            canvas[r0:r1, c0:c1] = oriented[sr:sr + r1 - r0,
-                                            sc:sc + c1 - c0]
-            continue
-        resize_place(src, p.orientation, *step.taps, canvas, r0, c0)
+            canvas[..., r0:r1, c0:c1, :] = oriented[
+                ..., sr:sr + r1 - r0, sc:sc + c1 - c0, :]
+        else:
+            place(src, p.orientation, *step.taps, canvas, r0, c0)
+
+
+def stitch(plan: LayoutPlan, images: Sequence[np.ndarray], device,
+           plain: bool = False) -> torch.Tensor:
+    """One job on ``device``: the uint8 HWC canvas tensor.  Work is enqueued
+    on the current stream; the caller synchronises."""
+    device = torch.device(device)
+    channels = job_channels(plan, images)
+    srcs = [source_tensor(raw, p, channels, device)
+            for raw, p in zip(images, plan.placements)]
+    canvas = new_canvas(plan, channels, device)
+    _compose(plan, srcs, canvas, plan_steps(plan, device), plain)
+    return canvas
+
+
+def _stack_tensors(plan: LayoutPlan, stacks: Sequence,
+                  device: torch.device) -> List[torch.Tensor]:
+    """Slot stacks (numpy arrays or tensors, slot i ``(B, H_i, W_i, C)``
+    uint8) as contiguous tensors on ``device``, checked against the plan
+    (the JAX ``BatchedStitch.__call__``'s checks and messages)."""
+    if len(stacks) != len(plan.placements):
+        raise ValueError("image-slot count does not match plan")
+    out, batch, channels = [], None, None
+    for arr, p in zip(stacks, plan.placements):
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.from_numpy(np.ascontiguousarray(arr))
+        if batch is None and arr.ndim == 4:
+            batch, channels = arr.shape[0], arr.shape[3]
+        if arr.ndim != 4 or arr.shape[0] != batch:
+            raise ValueError(f"slot {p.index}: expected (B={batch}, H, W, C),"
+                             f" got {tuple(arr.shape)}")
+        if tuple(arr.shape[1:3]) != (p.raw_h, p.raw_w):
+            raise ValueError(
+                f"slot {p.index}: got {arr.shape[2]}x{arr.shape[1]}, "
+                f"plan says {p.raw_w}x{p.raw_h}")
+        if arr.dtype != torch.uint8:
+            raise ValueError("batched stitch expects uint8")
+        if arr.shape[3] != channels or channels not in (1, 3):
+            raise ValueError(f"slot {p.index}: {arr.shape[3]} channels, "
+                             f"slot 0 has {channels} (1 or 3, equal)")
+        out.append(arr.to(device).contiguous())
+    return out
+
+
+def stitch_batch(plan: LayoutPlan, stacks: Sequence, device,
+                 plain: bool = False,
+                 steps: Optional[Sequence[Optional[_Step]]] = None,
+                 ) -> torch.Tensor:
+    """B jobs of one plan on ``device``: ``stacks[i]`` is image slot i's
+    ``(B, H_i, W_i, C)`` uint8 stack (numpy or tensor); returns the
+    ``(B, canvas_h, canvas_w, C)`` uint8 canvas tensor.  One kernel launch
+    per resampled placement for the whole batch.  ``steps`` (from
+    :func:`plan_steps`) lets a caller hold its taps; work is enqueued on the
+    current stream and the caller synchronises."""
+    device = torch.device(device)
+    srcs = _stack_tensors(plan, stacks, device)
+    canvas = new_canvas(plan, srcs[0].shape[3], device, (srcs[0].shape[0],))
+    _compose(plan, srcs, canvas,
+             plan_steps(plan, device) if steps is None else steps, plain)
     return canvas

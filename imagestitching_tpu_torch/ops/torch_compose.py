@@ -1,11 +1,15 @@
 """Plain PyTorch compositing engine: orient -> K-tap resample -> place.
 
-Port of ``imagestitching_tpu/ops/xla_compose.py``.  It is the cross-check
-engine (``RuntimeConfig(engine="torch")``) on either device, and its
-primitives are the plain version of the CUDA resize-and-place kernel
-(:func:`..ops.cuda_resize.resize_place_ref`):
+Port of ``imagestitching_tpu/ops/xla_compose.py``.  Its primitives are the
+plain version of both CUDA resize-and-place kernels
+(:func:`..ops.cuda_resize.resize_place_ref` and ``resize_place_batch_ref``),
+and the cross-check engine (``RuntimeConfig(engine="torch")``,
+``BatchedStitch(engine="torch")``) runs :func:`resample` for every drawn
+placement through ``cuda_resize``'s placement loop.  Each works on one HWC
+job or on a ``(B, H, W, C)`` batch:
 
-* :func:`orient` -- EXIF orientation as ``flip``/``permute`` (``orient_jnp``);
+* :func:`orient` -- EXIF orientation as ``flip``/``transpose``
+  (``orient_jnp``, ``_orient_bhwc``);
 * :func:`ktap_axis` -- the K-tap gather that clips ``i0 + k`` to ``[0, m-1]``;
 * :func:`to_uint8` -- ``clamp(floor(x + 0.5), 0, 255)``, the framework-wide
   rounding contract (never ``torch.round``, which rounds half to even);
@@ -15,34 +19,33 @@ primitives are the plain version of the CUDA resize-and-place kernel
 
 from __future__ import annotations
 
-from typing import Sequence
-
 import numpy as np
 import torch
 
 from imagestitching_tpu.core import geometry
-from imagestitching_tpu.core.layout import LayoutPlan, Placement
+from imagestitching_tpu.core.layout import Placement
 
 
 def orient(img: torch.Tensor, orientation: int) -> torch.Tensor:
-    """Apply EXIF orientation to an HWC tensor (twin of ``orient_jnp``)."""
+    """Apply EXIF orientation to the H, W axes of an HWC tensor or of a
+    ``(B, H, W, C)`` batch (twin of ``orient_jnp`` and ``_orient_bhwc``)."""
     if orientation in (0, 1):
         return img
     if orientation == 2:
-        return img.flip(1)
+        return img.flip(-2)
     if orientation == 3:
-        return img.flip(0, 1)
+        return img.flip(-3, -2)
     if orientation == 4:
-        return img.flip(0)
-    t = img.transpose(0, 1)
+        return img.flip(-3)
+    t = img.transpose(-3, -2)
     if orientation == 5:
         return t
     if orientation == 6:
-        return t.flip(1)
+        return t.flip(-2)
     if orientation == 7:
-        return t.flip(0, 1)
+        return t.flip(-3, -2)
     if orientation == 8:
-        return t.flip(0)
+        return t.flip(-3)
     raise ValueError(f"invalid EXIF orientation {orientation}")
 
 
@@ -66,12 +69,14 @@ def placement_taps(p: Placement, kind: str) -> dict:
 
 def ktap_axis(img: torch.Tensor, i0: torch.Tensor, w: torch.Tensor,
               axis: int) -> torch.Tensor:
-    """K-tap separable resample of float ``img`` along ``axis``.
+    """K-tap separable resample of float ``img`` along ``axis`` (negative
+    axes count from the end, so a leading batch dimension passes through).
 
     ``i0 (n,)`` window starts, ``w (n, K)`` weights.  Indices are clipped to
     ``[0, m-1]``; out-of-range taps carry zero weight.  Terms are summed in
     k order as separate multiply and add, the order the CUDA kernel keeps.
     """
+    axis %= img.ndim
     m = img.shape[axis]
     i0 = i0.to(device=img.device, dtype=torch.int64)
     w = w.to(device=img.device, dtype=img.dtype)
@@ -93,31 +98,9 @@ def to_uint8(x: torch.Tensor) -> torch.Tensor:
 def resample(raw: torch.Tensor, orientation: int, ri0: torch.Tensor,
              rw: torch.Tensor, ci0: torch.Tensor,
              cw: torch.Tensor) -> torch.Tensor:
-    """Orient, resample rows then cols, quantize: the uint8 region."""
+    """Orient, resample rows then cols, quantize: the uint8 region of an
+    HWC source, or the ``(B, n_rows, n_cols, C)`` regions of a batch."""
     img = orient(raw, orientation).to(torch.float32)
-    img = ktap_axis(img, ri0, rw, 0)
-    img = ktap_axis(img, ci0, cw, 1)
+    img = ktap_axis(img, ri0, rw, -3)
+    img = ktap_axis(img, ci0, cw, -2)
     return to_uint8(img)
-
-
-def stitch(plan: LayoutPlan, images: Sequence[np.ndarray],
-           device) -> torch.Tensor:
-    """Whole job on ``device``: every drawn placement resampled (no copy
-    shortcut, as in ``xla_compose._stitch_impl``).  Returns the uint8 HWC
-    canvas tensor."""
-    from .assemble import job_channels, new_canvas, source_tensor
-
-    channels = job_channels(plan, images)
-    canvas = new_canvas(plan, channels, device)
-    for raw, p in zip(images, plan.placements):
-        r0, r1 = p.row_span
-        c0, c1 = p.col_span
-        if r1 <= r0 or c1 <= c0:
-            continue
-        src = source_tensor(raw, p, channels, device)
-        t = placement_taps(p, plan.filter)
-        canvas[r0:r1, c0:c1] = resample(
-            src, p.orientation,
-            *(torch.from_numpy(a) for a in (t["rows"]["i0"], t["rows"]["w"],
-                                            t["cols"]["i0"], t["cols"]["w"])))
-    return canvas

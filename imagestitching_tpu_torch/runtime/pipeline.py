@@ -83,13 +83,13 @@ def _is_oom(e: BaseException) -> bool:
     return any(p in low for p in _OOM_PHRASES)
 
 
-def _device(config: RuntimeConfig) -> torch.device:
-    """The job's device; a CUDA device on a host without one is an error,
-    never a silent move to the CPU."""
-    device = torch.device(config.device)
+def resolve_device(name) -> torch.device:
+    """A job's or a server's device; a CUDA device on a host without one is
+    an error, never a silent move to the CPU."""
+    device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"RuntimeConfig(device={config.device!r}) but CUDA is not "
+            f"RuntimeConfig(device={str(name)!r}) but CUDA is not "
             "available on this host; pass device='cpu' to run the plain "
             "PyTorch version")
     return device
@@ -97,12 +97,10 @@ def _device(config: RuntimeConfig) -> torch.device:
 
 def _resident(plan: LayoutPlan, images: Sequence[np.ndarray],
               engine: str, device: torch.device) -> torch.Tensor:
-    """The resident strategy: every source and the canvas on ``device``."""
-    if engine == "torch":
-        from ..ops import torch_compose
-        return torch_compose.stitch(plan, images, device)
-    from ..ops import cuda_resize       # auto / cuda
-    return cuda_resize.stitch(plan, images, device)
+    """The resident strategy: every source and the canvas on ``device``;
+    ``torch`` is the plain cross-check engine, ``auto``/``cuda`` the kernel."""
+    from ..ops import cuda_resize
+    return cuda_resize.stitch(plan, images, device, plain=engine == "torch")
 
 
 def run(plan: LayoutPlan, images: Sequence[np.ndarray],
@@ -149,7 +147,7 @@ def run(plan: LayoutPlan, images: Sequence[np.ndarray],
         progress("composite", 1.0)
         return out, m
 
-    device = _device(config)
+    device = resolve_device(config.device)
     ex = tiler.plan_execution(plan, config.budget, channels)
     m.est_peak_bytes = ex.est_peak_bytes
     log.event("pipeline.plan", strategy=ex.strategy,

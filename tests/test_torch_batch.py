@@ -1,0 +1,212 @@
+"""The port's batched engine (``parallel.batch``, ``cuda_resize.stitch_batch``)
+on the CPU, where the batched kernel's wrapper runs its plain version,
+against the JAX package's ``parallel.batch.stitch_batch`` (the Pallas kernel
+in interpret mode, and the XLA engine) and the float64 oracle.
+
+Every job of a batch gets its own numpy data (``default_rng``), fed to both
+packages.  Tolerance: 1 uint8 step against the JAX engines and the oracle
+(f32 gathers against the JAX kernel's matmul order and the oracle's f64);
+identity-copy slots are exact; a batch of one equals the single-job path bit
+for bit, because both run the same placement loop and arithmetic.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from imagestitching_tpu.core import geometry, oracle
+from imagestitching_tpu.core.layout import ImageSpec, solve
+from imagestitching_tpu.parallel import batch as jax_batch
+from imagestitching_tpu_torch import StitchOptions
+from imagestitching_tpu_torch.ops import cuda_resize
+from imagestitching_tpu_torch.parallel import batch
+
+# name: ([(raw w, raw h, orientation)], options, channels)
+_CASES = {
+    "mixed": ([(48, 32, 1), (32, 40, 1)], dict(gap=3), 3),
+    "orient6-min": ([(48, 32, 6), (32, 48, 1)], dict(mode="min"), 3),
+    "horizontal-frac": ([(40, 30, 3), (50, 28, 8), (36, 36, 1)],
+                        dict(direction="horizontal", gap=2.5), 3),
+    "triangle-down": ([(90, 70, 6), (30, 20, 1)],
+                      dict(direction="horizontal", filter="triangle"), 3),
+    "gray": ([(50, 40, 1), (30, 35, 8)], dict(direction="horizontal"), 1),
+    # min mode: the 4x4 image's rounded draw height is 0 (an empty span)
+    "empty-span": ([(33, 4, 1), (4, 4, 1)], dict(mode="min"), 3),
+}
+_B = 3
+
+
+def _case(name, b=_B):
+    shapes, kw, c = _CASES[name]
+    plan = solve([ImageSpec(w, h, o) for w, h, o in shapes],
+                 StitchOptions(supersample=False, **kw))
+    rng = np.random.default_rng(sum(map(ord, name)))
+    stacks = [rng.integers(0, 256, (b, h, w, c), np.uint8)
+              for w, h, _ in shapes]
+    return plan, stacks
+
+
+def _maxdiff(a, b):
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+
+def _oracle(plan, stacks):
+    return np.stack([oracle.stitch(plan, [s[j] for s in stacks])
+                     for j in range(stacks[0].shape[0])])
+
+
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_batched_matches_jax_engines_and_oracle(name):
+    plan, stacks = _case(name)
+    got = batch.stitch_batch(plan, stacks, device="cpu")
+    c = stacks[0].shape[3]
+    assert got.shape == (_B, plan.canvas_h, plan.canvas_w, c)
+    assert got.dtype == np.uint8
+    want = _oracle(plan, stacks)
+    assert _maxdiff(got, want) <= 1
+    # the jobs really differ: no job's canvas leaked into another's
+    assert not np.array_equal(got[0], got[1])
+    for engine, kw in (("pallas", dict(interpret=True)), ("xla", {})):
+        ref = np.asarray(jax_batch.stitch_batch(plan, stacks, engine=engine,
+                                                **kw))
+        assert _maxdiff(got, ref) <= 1, engine
+    for p in plan.placements:
+        if geometry.placement_copy_offsets(p, plan.filter) is None:
+            continue
+        (r0, r1), (c0, c1) = p.row_span, p.col_span
+        np.testing.assert_array_equal(got[:, r0:r1, c0:c1],
+                                      want[:, r0:r1, c0:c1])
+    if name == "empty-span":
+        assert any(p.row_span[0] == p.row_span[1] for p in plan.placements)
+
+
+@pytest.mark.parametrize("o", range(1, 9))
+def test_batched_orientations_match_oracle(o):
+    plan = solve([ImageSpec(37, 23, o), ImageSpec(45, 29)],
+                 StitchOptions(mode="max", gap=2.5, supersample=False))
+    rng = np.random.default_rng(40 + o)
+    stacks = [rng.integers(0, 256, (2, 23, 37, 3), np.uint8),
+              rng.integers(0, 256, (2, 29, 45, 3), np.uint8)]
+    got = batch.BatchedStitch(plan, 2, device="cpu")(stacks)
+    assert _maxdiff(got, _oracle(plan, stacks)) <= 1
+
+
+@pytest.mark.parametrize("name", ["mixed", "orient6-min", "gray",
+                                  "empty-span"])
+def test_batch_of_one_equals_single_job_path(name):
+    plan, stacks = _case(name, b=1)
+    got = cuda_resize.stitch_batch(plan, stacks, "cpu")
+    single = cuda_resize.stitch(plan, [s[0] for s in stacks], "cpu")
+    assert torch.equal(got[0], single)
+
+
+@pytest.mark.parametrize("name", ["mixed", "horizontal-frac", "gray"])
+def test_torch_engine_equals_auto_engine(name):
+    """The plain whole-job engine (every placement resampled, the twin of
+    ``_batched_xla``) gives the same bits as the kernel engine's plain path:
+    identity taps resample to an exact copy."""
+    plan, stacks = _case(name)
+    auto = batch.stitch_batch(plan, stacks, engine="auto", device="cpu")
+    plain = batch.stitch_batch(plan, stacks, engine="torch", device="cpu")
+    np.testing.assert_array_equal(auto, plain)
+
+
+def test_batched_validates_shapes():
+    plan = solve([ImageSpec(16, 16)], StitchOptions(supersample=False))
+    rng = np.random.default_rng(3)
+    b = batch.BatchedStitch(plan, batch_size=2, device="cpu")
+    with pytest.raises(ValueError, match="B=2"):
+        b([rng.integers(0, 256, (3, 16, 16, 3), np.uint8)])   # wrong batch
+    with pytest.raises(ValueError, match="plan says"):
+        b([rng.integers(0, 256, (2, 8, 16, 3), np.uint8)])    # wrong dims
+    with pytest.raises(ValueError, match="uint8"):
+        b([np.zeros((2, 16, 16, 3), np.float32)])
+    with pytest.raises(ValueError, match="slot count"):
+        b([np.zeros((2, 16, 16, 3), np.uint8)] * 2)
+    with pytest.raises(ValueError, match="B=2"):
+        b([np.zeros((2, 16, 16), np.uint8)])                  # not BHWC
+
+
+def test_batched_rejects_mixed_channels():
+    plan = solve([ImageSpec(16, 16), ImageSpec(16, 8)],
+                 StitchOptions(supersample=False))
+    with pytest.raises(ValueError, match="channels"):
+        batch.stitch_batch(plan, [np.zeros((2, 16, 16, 3), np.uint8),
+                                  np.zeros((2, 8, 16, 1), np.uint8)],
+                           device="cpu")
+
+
+@pytest.mark.parametrize("kw,exc", [
+    (dict(engine="pallas"), ValueError),
+    (dict(engine="cuda", device="cpu"), ValueError),
+    (dict(mesh=object()), NotImplementedError),
+])
+def test_batched_stitch_arguments(kw, exc):
+    plan = solve([ImageSpec(16, 16)], StitchOptions(supersample=False))
+    args = dict(batch_size=2, device="cpu")
+    args.update(kw)
+    with pytest.raises(exc):
+        batch.BatchedStitch(plan, **args)
+
+
+def test_cuda_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    plan = solve([ImageSpec(16, 16)], StitchOptions(supersample=False))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        batch.BatchedStitch(plan, 2, device="cuda")
+
+
+def test_warm_runs_a_zero_batch():
+    plan, _ = _case("mixed")
+    bs = batch.BatchedStitch(plan, 4, device="cpu")
+    bs.warm()
+    assert bs._steps is cuda_resize.plan_steps(plan, torch.device("cpu"))
+
+
+def _wrapper_operands(b=3, c=3):
+    rng = np.random.default_rng(9)
+    src = torch.from_numpy(rng.integers(0, 256, (b, 20, 30, c), np.uint8))
+    ri0, rw = geometry.filter_taps(0, 10, 0.0, 10.0, 20)
+    ci0, cw = geometry.filter_taps(0, 12, 0.0, 12.0, 30)
+    taps = [torch.from_numpy(ri0), torch.from_numpy(rw.astype(np.float32)),
+            torch.from_numpy(ci0), torch.from_numpy(cw.astype(np.float32))]
+    return src, taps, torch.zeros((b, 16, 20, c), dtype=torch.uint8)
+
+
+def test_batch_wrapper_on_cpu_runs_plain_version_without_launching():
+    src, taps, canvas = _wrapper_operands()
+    before = (cuda_resize.launches, cuda_resize.batch_launches)
+    cuda_resize.resize_place_batch(src, 6, *taps, canvas, 3, 5)
+    assert (cuda_resize.launches, cuda_resize.batch_launches) == before
+    for j in range(3):
+        want = cuda_resize.resize_place_ref(src[j], 6, *taps)
+        assert torch.equal(canvas[j, 3:13, 5:17], want)
+    assert int(canvas[:, :3].sum()) == 0 and int(canvas[:, :, :5].sum()) == 0
+
+
+@pytest.mark.parametrize("bad", ["hwc-src", "batch-mismatch", "empty-batch",
+                                 "batch-over-grid", "off-canvas", "channels",
+                                 "meta-device"])
+def test_batch_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    src, taps, canvas = _wrapper_operands()
+    r0 = 0
+    if bad == "hwc-src":
+        src = src[0]
+    elif bad == "batch-mismatch":
+        canvas = canvas[:2]
+    elif bad in ("empty-batch", "batch-over-grid"):
+        # the kernel's z grid holds 1 to MAX_BATCH jobs
+        b = 0 if bad == "empty-batch" else cuda_resize.MAX_BATCH + 1
+        src = src[:1].expand(b, -1, -1, -1)
+        canvas = canvas[:1].expand(b, -1, -1, -1)
+    elif bad == "off-canvas":
+        r0 = 7
+    elif bad == "channels":
+        canvas = torch.zeros((3, 16, 20, 1), dtype=torch.uint8)
+    else:
+        src, canvas = src.to("meta"), canvas.to("meta")
+        taps = [t.to("meta") for t in taps]
+    with pytest.raises(ValueError):
+        cuda_resize.resize_place_batch(src, 1, *taps, canvas, r0, 0)

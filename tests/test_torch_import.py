@@ -41,8 +41,20 @@ assert "jax" not in sys.modules, sorted(
 """
 
 
-@pytest.mark.parametrize("script", [_IMPORT_ONLY, _CPU_STITCH],
-                         ids=["import", "cpu-stitch"])
+_SERVE_IMPORT = """
+import sys
+import imagestitching_tpu_torch.parallel.batch
+import imagestitching_tpu_torch.serve.http
+from imagestitching_tpu_torch import StitchHTTPServer, StitchServer
+assert "torch" in sys.modules
+assert "jax" not in sys.modules, sorted(
+    m for m in sys.modules if m.split(".")[0] == "jax")
+"""
+
+
+@pytest.mark.parametrize("script", [_IMPORT_ONLY, _CPU_STITCH,
+                                    _SERVE_IMPORT],
+                         ids=["import", "cpu-stitch", "serve-import"])
 def test_port_never_loads_jax(script):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=_ROOT,
@@ -66,6 +78,17 @@ def test_kernel_source_is_in_the_package():
     with open(os.path.join(_PORT, "csrc", "resize_place.cu")) as f:
         src = f.read()
     assert 'extern "C"' in src and "int resize_place_launch(" in src
+    assert "int resize_place_batch_launch(" in src
+
+
+def test_server_module_runs_with_help():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "imagestitching_tpu_torch.serve.http",
+         "--help"], cwd=_ROOT, env=env, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "--max-batch" in proc.stdout
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

@@ -1,6 +1,6 @@
-"""The CUDA resize-and-place kernel against its plain PyTorch version, on the
-card.  The kernel has no CPU mode, so every test here is marked ``cuda`` and
-skips on a host without a card.  Run them on a CUDA host with
+"""The CUDA resize-and-place kernels (single-job and batched) against their
+plain PyTorch version, on the card.  The kernels have no CPU mode, so every
+test here is marked ``cuda`` and skips on a host without a card.  Run them on a CUDA host with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernel.py -q
 
@@ -8,7 +8,9 @@ skips on a host without a card.  Run them on a CUDA host with
 use).  Tolerance: none.  The kernel sums in the plain version's order and is
 built with ``-fmad=false``, so its store equals the plain version's bit for
 bit; a truncating or half-to-even store, or an orientation stride bug,
-differs somewhere.  Whole jobs are held to the float64 oracle within 1 step.
+differs somewhere.  The batched kernel is the same body over ``blockIdx.z``,
+so it also equals B single launches bit for bit.  Whole jobs are held to the
+float64 oracle within 1 step.
 """
 
 import numpy as np
@@ -18,7 +20,8 @@ import torch
 from imagestitching_tpu.config import CanvasLimits, StitchOptions
 from imagestitching_tpu.core import geometry, oracle
 from imagestitching_tpu.core.layout import ImageSpec, solve
-from imagestitching_tpu_torch.ops import cuda_resize, torch_compose
+from imagestitching_tpu_torch import RuntimeConfig, StitchServer
+from imagestitching_tpu_torch.ops import _build, cuda_resize, torch_compose
 
 pytestmark = pytest.mark.cuda
 
@@ -60,13 +63,16 @@ def _job(name):
     return plan, imgs
 
 
+def _taps(p, kind, dev):
+    t = torch_compose.placement_taps(p, kind)
+    return [torch.from_numpy(x).to(dev) for x in
+            (t["rows"]["i0"], t["rows"]["w"], t["cols"]["i0"], t["cols"]["w"])]
+
+
 def _operands(raw, p, kind, dev):
     a = raw if raw.ndim == 3 else raw[:, :, None]
     src = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    t = torch_compose.placement_taps(p, kind)
-    taps = [torch.from_numpy(x).to(dev) for x in
-            (t["rows"]["i0"], t["rows"]["w"], t["cols"]["i0"], t["cols"]["w"])]
-    return src, taps
+    return src, _taps(p, kind, dev)
 
 
 @pytest.mark.parametrize("name", sorted(_CASES))
@@ -95,3 +101,55 @@ def test_kernel_equals_plain_version(card, name):
     got = cuda_resize.stitch(plan, imgs, card).cpu().numpy()
     want = oracle.stitch(plan, imgs)
     assert int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max()) <= 1
+
+
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_batched_kernel_equals_plain_and_single_launches(card, name):
+    plan, _ = _job(name)
+    c = _CASES[name][3]
+    rng = np.random.default_rng(sum(map(ord, name)) + 1)
+    checked = 0
+    for p in plan.placements:
+        if geometry.placement_copy_offsets(p, plan.filter) is not None:
+            continue
+        src = torch.from_numpy(rng.integers(
+            0, 256, (3, p.raw_h, p.raw_w, c), np.uint8)).to(card)
+        taps = _taps(p, plan.filter, card)
+        canvas = torch.zeros((3, plan.canvas_h, plan.canvas_w, c),
+                             dtype=torch.uint8, device=card)
+        r0, r1 = p.row_span
+        c0, c1 = p.col_span
+        before = cuda_resize.batch_launches
+        cuda_resize.resize_place_batch(src, p.orientation, *taps, canvas,
+                                       r0, c0)
+        assert cuda_resize.batch_launches == before + 1
+        want = cuda_resize.resize_place_batch_ref(src, p.orientation, *taps)
+        d = (canvas[:, r0:r1, c0:c1].int() - want.int()).abs()
+        assert int(d.max()) == 0, f"{name} #{p.index}: max |diff| {d.max()}"
+        for b in range(3):
+            one = torch.zeros_like(canvas[b])
+            cuda_resize.resize_place(src[b], p.orientation, *taps, one, r0, c0)
+            assert torch.equal(one, canvas[b]), f"{name} #{p.index} job {b}"
+        checked += 1
+    assert checked, f"{name}: no resampled placement"
+
+
+def test_broken_build_fails_the_flush(card, monkeypatch):
+    """A kernel that cannot be built fails the flush's jobs with the build's
+    error; it never hands back a plain-version result."""
+    def broken():
+        raise RuntimeError("nvcc failed (synthetic)")
+
+    monkeypatch.setattr(_build, "load", broken)
+    shapes, kw, _, _ = _CASES["bilinear-up"]
+    _, imgs = _job("bilinear-up")
+    with StitchServer(max_batch=2, max_wait_s=5.0,
+                      config=RuntimeConfig(device="cuda")) as s:
+        futs = [s.submit(imgs, StitchOptions(**kw),
+                         orientations=[o for _, _, o in shapes])
+                for _ in range(2)]
+        for f in futs:
+            with pytest.raises(RuntimeError, match="synthetic"):
+                f.result(timeout=60)
+        st = s.stats()
+    assert st["failed"] == 2 and st["jobs"] == 0
