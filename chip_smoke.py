@@ -34,12 +34,30 @@ Phases, one line each; any failure exits non-zero and prints no result:
    exact; flush wall, jobs/s and MP/s, and a profiled warm flush;
 10. batched kernel and plain-version times at config 5's shapes (B = 64);
 11. HTTP: ``StitchHTTPServer`` on localhost answers 4 concurrent
-    ``POST /stitch`` with what ``imagestitching_tpu_torch.stitch`` gives.
+    ``POST /stitch`` with what ``imagestitching_tpu_torch.stitch`` gives;
+12. the windowed kernel (#3) against its plain version on the card, bit for
+    bit, over phase 3's cases in 16-row chunks, and each case's banded
+    canvas against the resident one;
+13. BASELINE config 4 at real size with EXIF orientations (9 x 4000x3000,
+    orientations 1,6,3,8,1,5,2,7,4, vertical, mode "min", gap 4) through
+    ``imagestitching_tpu_torch.stitch`` on ``cuda`` under three budgets, one
+    per strategy (resident, streamed, banded): launches counted, every
+    canvas equal to the resident one, the oracle within 1 around every
+    chunk boundary and exact on copy spans, peak device memory under the
+    budget; then 9 x 6000x4000 at the default budget, which must run
+    streamed and equal a resident run;
+14. the OOM ladder on a real ``torch.cuda.OutOfMemoryError``: the config-4
+    job under a per-process memory cap that the resident rung cannot meet
+    demotes to streamed, and under one below the canvas to banded, both
+    equal to the resident canvas;
+15. windowed kernel and plain-version times at config 4's chunk shapes, and
+    where a streamed and a banded job's time goes (torch.profiler).
 
 Each kernel's launch count is read from its own path: phase 4 for the
-single-job kernel, phase 9 for the batched one, each with the counts set to
-0 just before.  The last two lines are a JSON record of the kernels and the
-device line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+single-job kernel, phase 9 for the batched one, phase 13's banded run for
+the windowed one, each with the counts set to 0 just before.  The last two
+lines are a JSON record of the kernels and the device line ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -389,6 +407,377 @@ def phase10_batch_times(dev, smi, plan, stacks):
     return worst, k_total, p_total
 
 
+REPLACES_WINDOW = "imagestitching_tpu/ops/pallas_resize.py:721"
+# BASELINE config 4 (BASELINE.md:36: 9 x 12 MP under a 2 GB budget), with
+# the EXIF orientations of config 3 so that five placements resample
+ORIENT4 = (1, 6, 3, 8, 1, 5, 2, 7, 4)
+CONFIG4 = [(4000, 3000, o) for o in ORIENT4]
+CONFIG4_24MP = [(6000, 4000, o) for o in ORIENT4]
+
+
+def _noop(*_):
+    pass
+
+
+def phase12_window_vs_plain(cases, dev, chunk_rows=16) -> int:
+    """Kernel #3 against its plain version, bit for bit, over the phase-3
+    cases in ``chunk_rows`` chunks, and each case's banded canvas at that
+    chunk height against ``cuda_resize.stitch``.  Returns the worst max
+    |diff|."""
+    import torch
+    from imagestitching_tpu.core import geometry
+    from imagestitching_tpu.core.layout import ImageSpec, solve
+    from imagestitching_tpu_torch.ops import cuda_resize
+    from imagestitching_tpu_torch.ops.window import WindowPlan
+    from imagestitching_tpu_torch.runtime import pipeline
+
+    rng = np.random.default_rng(12)
+    worst_all, notes = 0, []
+    for name, shapes, opts, limits, c in cases:
+        plan = solve([ImageSpec(w, h, o) for w, h, o in shapes], opts,
+                     limits)
+        imgs = [rng.integers(0, 256, (h, w, c), np.uint8)
+                for w, h, _ in shapes]
+        worst = ndiff = chunks = 0
+        for p in resampled(plan):
+            oriented = geometry.orient_array(imgs[p.index], p.orientation)
+            wp = WindowPlan(p, plan.filter, chunk_rows)
+            ci0, cw = (torch.from_numpy(a).to(dev) for a in (wp.ci0, wp.cw))
+            region = torch.zeros((wp.chunk, wp.n_cols, c), dtype=torch.uint8,
+                                 device=dev)
+            for g in range(wp.n_chunks):
+                _, valid, _ = wp.chunk_window(g)
+                crop = torch.from_numpy(wp.stage_crop(oriented, g)).to(dev)
+                ri0, rw = (torch.from_numpy(t).to(dev)
+                           for t in wp.chunk_taps(g))
+                cuda_resize.resize_place_window(crop, ri0, rw, ci0, cw,
+                                                region)
+                ref = cuda_resize.resize_place_window_ref(crop, ri0, rw, ci0,
+                                                          cw)
+                d = (region[:valid].int() - ref.int()).abs()
+                worst = max(worst, int(d.max()))
+                ndiff += int((d > 0).any(dim=2).sum())
+                chunks += 1
+        banded, _ = pipeline._run_banded(plan, imgs, c, chunk_rows, "auto",
+                                         dev, _noop)
+        resident = cuda_resize.stitch(plan, imgs, dev).cpu().numpy()
+        check(worst == 0 and ndiff == 0, f"{name}: windowed kernel vs plain "
+              f"max |diff| {worst}, {ndiff} differing pixels (must be exact)")
+        check(np.array_equal(banded, resident), f"{name}: banded canvas "
+              "differs from the resident one")
+        worst_all = max(worst_all, worst)
+        notes.append(f"{name}:{worst}/{ndiff}/{chunks}")
+    say(f"phase12 windowed kernel vs plain in {chunk_rows}-row chunks "
+        f"(exact), banded canvas equal to resident: {len(cases)} cases max "
+        f"|diff| {worst_all} | case:max_diff/differing_px/chunks "
+        + " ".join(notes))
+    return worst_all
+
+
+def _config4_job(dev, shapes, seed):
+    """(plan, options, raw images, (array, orientation) items) of a
+    config-4 job, the pixels made on the card from a seed."""
+    import torch
+    from imagestitching_tpu.core.layout import ImageSpec, solve
+    from imagestitching_tpu_torch import StitchOptions
+
+    opts = StitchOptions(direction="vertical", mode="min", gap=4,
+                         max_images=None)
+    plan = solve([ImageSpec(w, h, o) for w, h, o in shapes], opts)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    imgs = [torch.randint(0, 256, (h, w, 3), generator=g, dtype=torch.uint8,
+                          device=dev).cpu().numpy() for w, h, _ in shapes]
+    return plan, opts, imgs, [(a, o) for a, (_, _, o) in zip(imgs, shapes)]
+
+
+def _oracle_spots(plan, imgs, out, band_rows):
+    """Max |diff| against ``oracle.stitch_rows`` over 4 rows around every
+    chunk boundary and edge of each resampled placement, and over rows at
+    both ends and the middle of each copy span (which must be 0)."""
+    from imagestitching_tpu.core import geometry, oracle
+    from imagestitching_tpu_torch.ops.window import WindowPlan
+
+    def diff(lo, hi):
+        want = oracle.stitch_rows(plan, imgs, lo, hi)
+        lo = max(0, lo)
+        return int(np.abs(out[lo:lo + want.shape[0]].astype(np.int16)
+                          - want.astype(np.int16)).max())
+
+    worst = copy_max = 0
+    for p in plan.placements:
+        r0, r1 = p.row_span
+        if geometry.placement_copy_offsets(p, plan.filter) is not None:
+            mid = (r0 + r1) // 2
+            for lo in (r0, mid, r1 - 2):
+                copy_max = max(copy_max, diff(lo, lo + 2))
+            continue
+        wp = WindowPlan(p, plan.filter, band_rows)
+        for b in [r0 + a for a, _ in wp.windows] + [r1]:
+            worst = max(worst, diff(b - 2, b + 2))
+    return worst, copy_max
+
+
+def phase13_config4(dev, smi, shapes=CONFIG4, big=CONFIG4_24MP):
+    """BASELINE config 4 with EXIF orientations through
+    ``imagestitching_tpu_torch.stitch`` under three budgets, one per
+    strategy; then the 24 MP job at the default budget.  Returns (plan,
+    options, images, items, resident canvas, windowed launches of the
+    banded run)."""
+    import torch
+    import imagestitching_tpu_torch as itt
+    from imagestitching_tpu.runtime import tiler
+    from imagestitching_tpu_torch import MemoryBudget, RuntimeConfig
+    from imagestitching_tpu_torch.config import budget_from_device
+    from imagestitching_tpu_torch.ops import cuda_resize
+    from imagestitching_tpu_torch.ops.window import WindowPlan
+
+    plan, opts, imgs, items = _config4_job(dev, shapes, 4)
+    res = resampled(plan)
+    canvas_bytes = 3 * plan.canvas_w * plan.canvas_h
+    src_mb = sum(a.nbytes for a in imgs) / 1e6
+    ref, window_main, rows = None, 0, []
+    for strategy, budget in (
+            ("resident", MemoryBudget()),
+            ("streamed", MemoryBudget(
+                hbm_bytes=tiler.resident_peak_bytes(plan) - 1)),
+            ("banded", MemoryBudget(hbm_bytes=canvas_bytes // 2))):
+        ex = tiler.plan_execution(plan, budget)
+        check(ex.strategy == strategy, f"budget {budget.hbm_bytes}: the "
+              f"tiler picks {ex.strategy}, expected {strategy}")
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_resize.launches = cuda_resize.batch_launches = 0
+        cuda_resize.window_launches = 0
+        t0 = time.perf_counter()
+        out, m = itt.stitch(items, options=opts, config=RuntimeConfig(
+            device=str(dev), budget=budget), return_metrics=True)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        launched = (cuda_resize.launches, cuda_resize.batch_launches,
+                    cuda_resize.window_launches)
+        check(m.strategy == strategy, f"ran {m.strategy}, expected "
+              f"{strategy}")
+        if strategy == "banded":
+            chunks = sum(WindowPlan(p, plan.filter, ex.band_rows).n_chunks
+                         for p in res)
+            check(launched == (0, 0, chunks), f"banded launches {launched}, "
+                  f"expected (0, 0, {chunks})")
+            window_main = launched[2]
+        else:
+            check(launched == (len(res), 0, 0), f"{strategy} launches "
+                  f"{launched}, expected ({len(res)}, 0, 0)")
+        check(out.shape == (plan.canvas_h, plan.canvas_w, 3),
+              f"canvas {out.shape}")
+        if ref is None:
+            ref = out
+        check(np.array_equal(out, ref), f"{strategy} canvas differs from "
+              "the resident one")
+        check(peak < budget.hbm_bytes, f"{strategy}: peak device memory "
+              f"{peak} bytes over the budget {budget.hbm_bytes}")
+        worst, copy_max = _oracle_spots(plan, imgs, out, ex.band_rows or 256)
+        check(worst <= 1 and copy_max == 0, f"{strategy} vs oracle "
+              f"{worst}, copy spans {copy_max}")
+        rows.append(f"{strategy} (budget {budget.hbm_bytes / 1e6:.1f} MB"
+                    f"{', ' + str(ex.band_rows) + '-row bands' if ex.band_rows else ''}): "
+                    f"wall {wall:.4f} s compute {m.compute_s:.4f} s readback "
+                    f"{m.readback_s:.4f} s h2d {m.h2d_bytes} bytes | peak "
+                    f"{peak / 1e6:.1f} MB est {m.est_peak_bytes / 1e6:.1f} MB "
+                    f"| launches #1/#2/#3 {launched[0]}/{launched[1]}/"
+                    f"{launched[2]} | oracle spots max |diff| {worst} copy "
+                    f"spans {copy_max}")
+    say(f"phase13 config4-EXIF via imagestitching_tpu_torch.stitch on cuda "
+        f"(9 x {shapes[0][0]}x{shapes[0][1]}, canvas {plan.canvas_w}x"
+        f"{plan.canvas_h}x3 {canvas_bytes / 1e6:.1f} MB, {len(res)} "
+        f"resampled + {9 - len(res)} copies, sources {src_mb:.1f} MB), every "
+        "canvas equal to the resident one | " + " | ".join(rows)
+        + f" | {smi}")
+
+    # the 24 MP job at the default budget: streamed, equal to resident
+    plan24, opts24, imgs24, items24 = _config4_job(dev, big, 24)
+    ex = tiler.plan_execution(plan24, MemoryBudget())
+    check(ex.strategy == "streamed", f"24 MP job: the tiler picks "
+          f"{ex.strategy}")
+    t0 = time.perf_counter()
+    out24, m24 = itt.stitch(items24, options=opts24, config=RuntimeConfig(
+        device=str(dev)), return_metrics=True)
+    wall24 = time.perf_counter() - t0
+    check(m24.strategy == "streamed", f"24 MP job ran {m24.strategy}")
+    want24, mr = itt.stitch(items24, options=opts24, config=RuntimeConfig(
+        device=str(dev), budget=budget_from_device(str(dev))),
+        return_metrics=True)
+    check(mr.strategy == "resident", f"24 MP resident run: {mr.strategy}")
+    check(np.array_equal(out24, want24), "24 MP streamed canvas differs "
+          "from the resident one")
+    say(f"phase13 24MP job (9 x {big[0][0]}x{big[0][1]}, canvas "
+        f"{plan24.canvas_w}x{plan24.canvas_h}x3) at the default "
+        f"RuntimeConfig: strategy {m24.strategy} (est "
+        f"{m24.est_peak_bytes / 1e6:.1f} MB), wall {wall24:.4f} s compute "
+        f"{m24.compute_s:.4f} s readback {m24.readback_s:.4f} s, equal to a "
+        f"resident run under budget_from_device ({mr.compute_s:.4f} s "
+        f"compute) | {smi}")
+    del out24, want24, imgs24, items24
+    return plan, opts, imgs, items, ref, window_main
+
+
+def phase14_ladder(dev, smi, plan, opts, items, ref):
+    """The demotion ladder on a real ``torch.cuda.OutOfMemoryError``: a
+    per-process memory cap the resident rung cannot meet (the tiler still
+    picks resident under ``budget_from_device``) demotes to streamed, and a
+    cap below the canvas to banded."""
+    import torch
+    import imagestitching_tpu_torch as itt
+    from imagestitching_tpu.runtime.logger import StitchLogger, set_logger
+    from imagestitching_tpu_torch import RuntimeConfig
+    from imagestitching_tpu_torch.config import budget_from_device
+
+    canvas_bytes = 3 * plan.canvas_w * plan.canvas_h
+    src_max = max(a.nbytes for a, _ in items)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cfg = RuntimeConfig(device=str(dev), budget=budget_from_device(str(dev)))
+    log = StitchLogger()
+    set_logger(log)
+    rows = []
+    try:
+        for expect, headroom, failed in (
+                ("streamed", canvas_bytes + 3 * src_max, ["resident"]),
+                ("banded", canvas_bytes // 2, ["resident", "streamed"])):
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            torch.cuda.set_per_process_memory_fraction(
+                (reserved + headroom) / total, dev)
+            log.clear()
+            t0 = time.perf_counter()
+            out, m = itt.stitch(items, options=opts, config=cfg,
+                                return_metrics=True)
+            wall = time.perf_counter() - t0
+            retries = [(e["failed"], e["band"]) for e in log.ring()
+                       if e["tag"] == "pipeline.oom_retry"]
+            check(m.strategy == expect and [f for f, _ in retries] == failed,
+                  f"cap {headroom} bytes over {reserved}: ran {m.strategy} "
+                  f"after {retries}, expected {expect} after {failed}")
+            check(np.array_equal(out, ref), f"{expect} after OOM differs "
+                  "from the resident canvas")
+            rows.append(f"cap reserved+{headroom / 1e6:.1f} MB: "
+                        f"{m.strategy} after oom_retry {retries}, wall "
+                        f"{wall:.4f} s, equal to resident")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        set_logger(StitchLogger())
+    say("phase14 OOM ladder on real torch.cuda.OutOfMemoryError (config 4, "
+        "budget_from_device so the tiler picks resident): "
+        + " | ".join(rows))
+
+
+def phase15_window_times(dev, smi, plan, opts, items, band_rows=256):
+    """Kernel #3 and its plain version timed over every chunk of config 4's
+    banded job (crops and taps already on the card), checked bit for bit;
+    then a streamed and a banded job under torch.profiler.  Returns (max
+    |diff|, kernel ms, plain ms) per job."""
+    import torch
+    import imagestitching_tpu_torch as itt
+    from imagestitching_tpu.core import geometry
+    from imagestitching_tpu.runtime import tiler
+    from imagestitching_tpu_torch import MemoryBudget, RuntimeConfig
+    from imagestitching_tpu_torch.ops import cuda_resize
+    from imagestitching_tpu_torch.ops.window import WindowPlan
+
+    chunks, regions = [], {}
+    for p in resampled(plan):
+        oriented = geometry.orient_array(items[p.index][0], p.orientation)
+        wp = WindowPlan(p, plan.filter, band_rows)
+        ci0, cw = (torch.from_numpy(a).to(dev) for a in (wp.ci0, wp.cw))
+        regions[p.index] = torch.zeros((wp.chunk, wp.n_cols, 3),
+                                       dtype=torch.uint8, device=dev)
+        for g in range(wp.n_chunks):
+            _, valid, _ = wp.chunk_window(g)
+            chunks.append((p.index, valid, torch.from_numpy(
+                wp.stage_crop(oriented, g)).to(dev),
+                *(torch.from_numpy(t).to(dev) for t in wp.chunk_taps(g)),
+                ci0, cw))
+
+    def kernel():
+        for idx, _, crop, ri0, rw, ci0, cw in chunks:
+            cuda_resize.resize_place_window(crop, ri0, rw, ci0, cw,
+                                            regions[idx])
+
+    def plain():
+        for idx, valid, crop, ri0, rw, ci0, cw in chunks:
+            regions[idx][:valid] = cuda_resize.resize_place_window_ref(
+                crop, ri0, rw, ci0, cw)
+
+    plain_a = median_ms(plain, reps=5, inner=1)
+    kern_a = median_ms(kernel, reps=5, inner=1)
+    kern_b = median_ms(kernel, reps=5, inner=1)
+    plain_b = median_ms(plain, reps=5, inner=1)
+    k_dev, p_dev = device_ms(kernel, reps=3)[0], device_ms(plain, reps=3)[0]
+    worst = ndiff = 0
+    for idx, valid, crop, ri0, rw, ci0, cw in chunks:
+        cuda_resize.resize_place_window(crop, ri0, rw, ci0, cw, regions[idx])
+        want = cuda_resize.resize_place_window_ref(crop, ri0, rw, ci0, cw)
+        d = (regions[idx][:valid].int() - want.int()).abs()
+        worst = max(worst, int(d.max()))
+        ndiff += int((d > 0).any(dim=2).sum())
+    check(worst == 0 and ndiff == 0, f"config 4 windowed kernel vs plain "
+          f"max |diff| {worst}, {ndiff} differing pixels (must be exact)")
+    k_ms = statistics.median([kern_a, kern_b])
+    p_ms = statistics.median([plain_a, plain_b])
+    crop0 = chunks[0][2]
+    say(f"phase15 windowed times over config 4's {len(chunks)} chunks of "
+        f"{band_rows} rows (crop {tuple(crop0.shape)} -> region "
+        f"{band_rows}x{regions[chunks[0][0]].shape[1]}x3; ms per job, CUDA "
+        f"events median of 5, order plain kernel kernel plain: "
+        f"{plain_a:.4f} {kern_a:.4f} {kern_b:.4f} {plain_b:.4f}) on {smi}: "
+        f"kernel {k_ms:.4f} ({k_dev:.4f} busy) plain {p_ms:.4f} "
+        f"({p_dev:.4f} busy) | max |diff| {worst}, differing px {ndiff}")
+    del chunks, regions
+
+    canvas_bytes = 3 * plan.canvas_w * plan.canvas_h
+    for strategy, budget in (
+            ("streamed", MemoryBudget(
+                hbm_bytes=tiler.resident_peak_bytes(plan) - 1)),
+            ("banded", MemoryBudget(hbm_bytes=canvas_bytes // 2))):
+        cfg = RuntimeConfig(device=str(dev), budget=budget)
+
+        def job(cfg=cfg):
+            itt.stitch(items, options=opts, config=cfg)
+
+        busy, wall, by_name = device_ms(job, reps=1)
+        groups = {"Memcpy HtoD": 0.0, "resize_place": 0.0,
+                  "Memcpy DtoH": 0.0}
+        for name, ms in by_name.items():
+            key = next((k for k in groups if k in name), "other")
+            groups[key] = groups.get(key, 0.0) + ms
+        say(f"phase15 warm {strategy} config-4 job under torch.profiler on "
+            f"{smi}: host wall {wall:.4f} ms, device busy {busy:.4f} ms, "
+            f"idle (host) share {1 - busy / wall if wall else float('nan'):.4f}"
+            " | device ms " + " ".join(f"{k}={v:.4f}"
+                                       for k, v in groups.items()))
+
+    # host parts of the banded job, by host clock: the canvas fill and the
+    # blits of the copy placements (rotated sources are strided copies)
+    t0 = time.perf_counter()
+    out = np.empty((plan.canvas_h, plan.canvas_w, 3), np.uint8)
+    out[:] = np.asarray(plan.background[:3], np.uint8)
+    fill_s = time.perf_counter() - t0
+    blits = []
+    for p in plan.placements:
+        off = geometry.placement_copy_offsets(p, plan.filter)
+        if off is None:
+            continue
+        (r0, r1), (c0, c1), (sr, sc) = p.row_span, p.col_span, off
+        t0 = time.perf_counter()
+        out[r0:r1, c0:c1] = geometry.orient_array(
+            items[p.index][0], p.orientation)[sr:sr + r1 - r0,
+                                              sc:sc + c1 - c0]
+        blits.append(f"o{p.orientation}:{time.perf_counter() - t0:.4f}")
+    say(f"phase15 banded job's host work by host clock: canvas fill "
+        f"{fill_s:.4f} s, copy blits (orientation:s) {' '.join(blits)}")
+    return worst, k_ms, p_ms
+
+
 def _multipart(blobs):
     boundary = "chipsmokeboundary"
     parts = [(f"--{boundary}\r\nContent-Disposition: form-data; "
@@ -717,6 +1106,14 @@ def main() -> None:
     del stacks5
     phase11_http(dev, smi)
 
+    # ---- phases 12-15: streamed, banded (kernel #3) and the OOM ladder
+    worst12 = phase12_window_vs_plain(cases, dev)
+    plan4, opts4, _, items4, ref4, launches_w = phase13_config4(dev, smi)
+    phase14_ladder(dev, smi, plan4, opts4, items4, ref4)
+    del ref4
+    worst15, kw_total, pw_total = phase15_window_times(dev, smi, plan4, opts4,
+                                                       items4)
+
     record = {"kernels": [{
         "name": "resize_place", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES, "launches": launches_main,
@@ -725,7 +1122,11 @@ def main() -> None:
         "name": "resize_place_batch", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES_BATCH,
         "launches": launches5, "max_abs_err": max(worst8, worst10),
-        "ms": round(kb_total, 6), "plain_ms": round(pb_total, 6)}]}
+        "ms": round(kb_total, 6), "plain_ms": round(pb_total, 6)}, {
+        "name": "resize_place_window", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES_WINDOW,
+        "launches": launches_w, "max_abs_err": max(worst12, worst15),
+        "ms": round(kw_total, 6), "plain_ms": round(pw_total, 6)}]}
     say(json.dumps(record))
     say(f"gpu: {smi}")
     say(json.dumps({"ok": True, "device": {

@@ -41,7 +41,9 @@ def stitch_arrays(images: Sequence[np.ndarray],
 
     With ``return_metrics=True`` returns ``(array, StitchMetrics)``.
     ``keep_on_device=True`` returns the canvas as a tensor on
-    ``config.device`` instead of reading it back.
+    ``config.device`` instead of reading it back, when the strategy holds
+    it there (resident, streamed); the banded strategy composites on the
+    host and returns numpy either way.
     """
     options = (options or StitchOptions()).validate()
     config = (config or RuntimeConfig()).validate()

@@ -1,11 +1,15 @@
-// Fused resize-and-place for one placement of a stitch job, or of a batch of
-// jobs that share it, for Hopper (sm_90a).
+// Fused resize-and-place for one placement of a stitch job, of a batch of
+// jobs that share it, or of one row chunk of it, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel imagestitching_tpu/ops/pallas_resize.py::_make_kernel
-// in both of the shapes that _build_call_static launches it in: the single-job
-// form (batch=0, from resize_place_one) and the batched form (batch=B, from
-// resize_place_batch, the serving path of parallel/batch._batched_pallas).  It
-// computes the same thing: the EXIF-oriented source, resampled by the
+// in the three shapes it is launched in: the single-job form (batch=0, from
+// resize_place_one), the batched form (batch=B, from resize_place_batch, the
+// serving path of parallel/batch._batched_pallas) and the windowed form
+// (_jitted_call_static from _WindowPlan.run_chunk, the banded strategy: one
+// chunk of dest rows from a host-cropped, host-oriented source row window,
+// with row taps rebased to the window).  All three are the one body below
+// with other operands, so they cannot drift apart.  The body computes what
+// the Pallas kernel computes: the EXIF-oriented source, resampled by the
 // separable K-tap filter whose taps geometry.filter_taps computed on the host
 // (f64, stored f32), quantized as clip(floor(x + 0.5), 0, 255) into uint8.  It
 // is not a block-by-block copy of the Pallas kernel: banded MXU matmuls,
@@ -124,7 +128,7 @@ bool orientation_map(int orientation, int64_t H, int64_t W, int64_t* base,
   }
 }
 
-// The one launcher behind both C entries.  Strides are in bytes (uint8
+// The one launcher behind the three C entries.  Strides are in bytes (uint8
 // elements) between consecutive jobs; with batch == 1 they are not read.
 int launch(const void* src, int batch, int64_t src_stride, int64_t src_h,
            int64_t src_w, int channels, int orientation, const void* ri0,
@@ -172,14 +176,16 @@ int launch(const void* src, int batch, int64_t src_stride, int64_t src_h,
 
 extern "C" {
 
-// Both entries launch on `stream` and return cudaGetLastError() (0 = the
+// The entries launch on `stream` and return cudaGetLastError() (0 = the
 // launch was accepted).  They launch on the calling thread's current device,
 // which the caller sets to the device that holds the tensors and `stream`;
 // the current device is left as it was.  They do not synchronise and
 // allocate nothing.
 
+// All entries take contiguous uint8 HWC arrays.
+//
 // One job: src is (src_h, src_w, channels), canvas (canvas_h, canvas_w,
-// channels), both contiguous uint8.
+// channels).
 int resize_place_launch(const void* src, int64_t src_h,
                         int64_t src_w, int channels, int orientation,
                         const void* ri0, const void* rw, int n_rows,
@@ -207,6 +213,22 @@ int resize_place_batch_launch(const void* src, int batch, int64_t src_stride,
   return launch(src, batch, src_stride, src_h, src_w, channels, orientation,
                 ri0, rw, n_rows, k_rows, ci0, cw, n_cols, k_cols, canvas,
                 canvas_stride, canvas_h, canvas_w, r0, c0, stream);
+}
+
+// One chunk of one placement (the banded strategy): crop is the oriented
+// source row window (crop_rows, width, channels), orientation already
+// applied; the n_rows x n_cols result goes to rows [0, n_rows) of region
+// (region_rows, n_cols, channels).  Taps are clamped to the crop, which the
+// caller sizes to cover every tap of the chunk.
+int resize_place_window_launch(const void* crop, int64_t crop_rows,
+                               int64_t width, int channels, const void* ri0,
+                               const void* rw, int n_rows, int k_rows,
+                               const void* ci0, const void* cw, int n_cols,
+                               int k_cols, void* region, int64_t region_rows,
+                               void* stream) {
+  return launch(crop, 1, 0, crop_rows, width, channels, 1, ri0, rw, n_rows,
+                k_rows, ci0, cw, n_cols, k_cols, region, 0, region_rows,
+                n_cols, 0, 0, stream);
 }
 
 const char* resize_place_error_string(int code) {

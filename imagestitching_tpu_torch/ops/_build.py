@@ -1,9 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``) at first use.
 
-The twin of ``pallas_resize._build_call_static`` (single-job and batched):
-where the JAX package lowers a ``pl.pallas_call`` through Mosaic, the port
-compiles its CUDA C++
-sources with ``nvcc`` into a shared library with a plain C interface and
+The twin of ``pallas_resize._build_call_static`` (single-job, batched and
+windowed): where the JAX package lowers a ``pl.pallas_call`` through Mosaic,
+the port compiles its CUDA C++ sources with ``nvcc`` into a shared library
+with a plain C interface and
 loads it with ``ctypes``.  No PyTorch headers are compiled, so a build takes
 seconds.  The library lands in ``imagestitching_tpu_torch/_build/`` under a
 name keyed on a hash of the sources and flags, so an edited source is
@@ -120,6 +120,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         i64, i64, i64, i64,                  # canvas H, W, r0, c0
         p]                                   # stream
     lib.resize_place_batch_launch.restype = i32
+    lib.resize_place_window_launch.argtypes = [
+        p, i64, i64, i32,                    # crop, crop rows, width, C
+        p, p, i32, i32,                      # ri0, rw, n_rows, k_rows
+        p, p, i32, i32,                      # ci0, cw, n_cols, k_cols
+        p, i64,                              # region, region rows
+        p]                                   # stream
+    lib.resize_place_window_launch.restype = i32
     lib.resize_place_error_string.argtypes = [i32]
     lib.resize_place_error_string.restype = ctypes.c_char_p
 

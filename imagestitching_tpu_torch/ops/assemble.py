@@ -40,10 +40,10 @@ def new_canvas(plan: LayoutPlan, channels: int, device,
     return canvas
 
 
-def source_tensor(raw: np.ndarray, p: Placement, channels: int,
-                  device) -> torch.Tensor:
-    """Raw (un-oriented) uint8 HWC source as a contiguous tensor on
-    ``device``, checked against its placement."""
+def source_array(raw: np.ndarray, p: Placement,
+                 channels: int) -> np.ndarray:
+    """Raw (un-oriented) uint8 source as an HWC array, checked against its
+    placement."""
     arr = np.asarray(raw)
     if arr.ndim == 2:
         arr = arr[:, :, None]
@@ -56,4 +56,12 @@ def source_tensor(raw: np.ndarray, p: Placement, channels: int,
     if arr.shape[2] != channels:
         raise ValueError(f"image {p.index}: {arr.shape[2]} channels, "
                          f"expected {channels}")
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return arr
+
+
+def source_tensor(raw: np.ndarray, p: Placement, channels: int,
+                  device) -> torch.Tensor:
+    """Raw (un-oriented) uint8 HWC source as a contiguous tensor on
+    ``device``, checked against its placement."""
+    return torch.from_numpy(
+        np.ascontiguousarray(source_array(raw, p, channels))).to(device)

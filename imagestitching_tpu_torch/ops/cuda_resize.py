@@ -1,27 +1,32 @@
 """Fused resize-and-place on the card: the CUDA kernels, their plain version,
-and the placement loop that serves one job and a batch of jobs.
+and the placement step that serves one job, a batch of jobs and the streamed
+strategy.
 
 Port of ``imagestitching_tpu/ops/pallas_resize.py:882-1015`` (``_orient_chw``,
-``_stitch_jit``, ``CompiledPallasStitch``, ``get_compiled``, ``stitch``) and
-of the batched engine ``parallel/batch._batched_pallas`` (:33-57).  The
-kernels are ``csrc/resize_place.cu``; they replace
-``pallas_resize._make_kernel`` as launched by ``resize_place_one`` (#1) and
-``resize_place_batch`` (#2).
+``_stitch_jit``, ``CompiledPallasStitch``, ``get_compiled``, ``stitch``), of
+the batched engine ``parallel/batch._batched_pallas`` (:33-57) and of the
+windowed call ``_WindowPlan.run_chunk`` (:868-875).  The kernels are
+``csrc/resize_place.cu``; they replace ``pallas_resize._make_kernel`` as
+launched by ``resize_place_one`` (#1), ``resize_place_batch`` (#2) and
+``_jitted_call_static`` (#3).
 
-* :func:`resize_place` (one job) and :func:`resize_place_batch` (B stacked
-  jobs sharing one placement's taps, one launch) are the kernels' wrappers.
-  For tensors on the CPU they run the plain version, :func:`resize_place_ref`;
-  for CUDA tensors they launch the kernel or raise.  There is no fallback
-  between the two.
-* ``launches`` and ``batch_launches`` count kernel launches, so a run can
-  show that its main path went through the kernels.
-* :func:`stitch` runs one job and :func:`stitch_batch` B jobs of one plan,
-  through one placement loop: identity placements are slices of the oriented
-  source (as at ``_stitch_jit`` and ``batch.py:44-50``), every other drawn
-  placement is resampled by the kernel straight into the canvas.  With
-  ``plain=True`` the loop is the cross-check engine instead: every drawn
-  placement goes through the plain version, with no copy shortcut (the twin
-  of ``xla_compose._stitch_impl`` and ``batch._batched_xla``).
+* :func:`resize_place` (one job), :func:`resize_place_batch` (B stacked jobs
+  sharing one placement's taps, one launch) and :func:`resize_place_window`
+  (one row chunk of a placement from a cropped, oriented source window) are
+  the kernels' wrappers.  For tensors on the CPU they run the plain version,
+  :func:`resize_place_ref`; for CUDA tensors they launch the kernel or raise.
+  There is no fallback between the two.
+* ``launches``, ``batch_launches`` and ``window_launches`` count kernel
+  launches, so a run can show that its main path went through the kernels.
+* :func:`draw_placement` is the one placement step: identity placements are
+  slices of the oriented source (as at ``_stitch_jit`` and
+  ``batch.py:44-50``), every other drawn placement is resampled by the kernel
+  straight into the canvas.  With ``plain=True`` it is the cross-check
+  engine's step instead: every drawn placement goes through the plain
+  version, with no copy shortcut (the twin of ``xla_compose._stitch_impl``
+  and ``batch._batched_xla``).  :func:`stitch` runs it over one job,
+  :func:`stitch_batch` over B jobs of one plan, and the pipeline's streamed
+  strategy one uploaded source at a time.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import numpy as np
 import torch
 
 from imagestitching_tpu.core import geometry
-from imagestitching_tpu.core.layout import LayoutPlan
+from imagestitching_tpu.core.layout import LayoutPlan, Placement
 
 from . import torch_compose
 from .assemble import job_channels, new_canvas, source_tensor
@@ -43,6 +48,8 @@ from .assemble import job_channels, new_canvas, source_tensor
 launches = 0
 #: Kernel launches by :func:`resize_place_batch` in this process.
 batch_launches = 0
+#: Kernel launches by :func:`resize_place_window` in this process.
+window_launches = 0
 
 #: The batched kernel's z-grid bound (``gridDim.z``).
 MAX_BATCH = 65535
@@ -70,6 +77,14 @@ def resize_place_ref(src: torch.Tensor, orientation: int, ri0: torch.Tensor,
 
 #: The batched kernel's plain version: the same function on a batch.
 resize_place_batch_ref = resize_place_ref
+
+
+def resize_place_window_ref(crop: torch.Tensor, ri0: torch.Tensor,
+                            rw: torch.Tensor, ci0: torch.Tensor,
+                            cw: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the windowed kernel: the uint8 ``(n_rows,
+    n_cols, C)`` chunk region of an oriented HWC crop."""
+    return torch_compose.resample(crop, 1, ri0, rw, ci0, cw)
 
 
 def _check(batched: bool, src: torch.Tensor, ri0: torch.Tensor,
@@ -108,11 +123,12 @@ def _check(batched: bool, src: torch.Tensor, ri0: torch.Tensor,
                          f"the {canvas_h}x{canvas_w} canvas")
 
 
-def _place(batched: bool, src: torch.Tensor, orientation: int,
+def _place(entry: str, src: torch.Tensor, orientation: int,
            ri0: torch.Tensor, rw: torch.Tensor, ci0: torch.Tensor,
            cw: torch.Tensor, canvas: torch.Tensor, r0: int, c0: int) -> bool:
-    """The body of both wrappers; True when it launched a kernel."""
-    _check(batched, src, ri0, rw, ci0, cw, canvas, r0, c0)
+    """The body of the three wrappers (``entry`` is ``one``, ``batch`` or
+    ``window``); True when it launched a kernel."""
+    _check(entry == "batch", src, ri0, rw, ci0, cw, canvas, r0, c0)
     if orientation not in range(9):
         raise ValueError(f"invalid EXIF orientation {orientation}")
     n_rows, n_cols = ri0.shape[0], ci0.shape[0]
@@ -136,11 +152,15 @@ def _place(batched: bool, src: torch.Tensor, orientation: int,
     # caller's device afterwards
     with torch.cuda.device(src.device):
         stream = ptr(torch.cuda.current_stream().cuda_stream)
-        if batched:
+        if entry == "batch":
             err = lib.resize_place_batch_launch(
                 ptr(src.data_ptr()), src.shape[0], src.stride(0), h, w, c,
                 orientation, *taps, ptr(canvas.data_ptr()), canvas.stride(0),
                 *canvas_hw, stream)
+        elif entry == "window":
+            err = lib.resize_place_window_launch(
+                ptr(src.data_ptr()), h, w, c, *taps, ptr(canvas.data_ptr()),
+                canvas.shape[0], stream)
         else:
             err = lib.resize_place_launch(
                 ptr(src.data_ptr()), h, w, c, orientation, *taps,
@@ -158,7 +178,7 @@ def resize_place(src: torch.Tensor, orientation: int, ri0: torch.Tensor,
     K-tap row taps ``(ri0, rw)`` and column taps ``(ci0, cw)`` and store the
     uint8 result into ``canvas[r0:r0+n_rows, c0:c0+n_cols]`` in place."""
     global launches
-    if _place(False, src, orientation, ri0, rw, ci0, cw, canvas, r0, c0):
+    if _place("one", src, orientation, ri0, rw, ci0, cw, canvas, r0, c0):
         launches += 1
 
 
@@ -170,9 +190,25 @@ def resize_place_batch(src_bhwc: torch.Tensor, orientation: int,
     ``src_bhwc (B, H, W, C)``, ``canvas_bhwc (B, canvas_h, canvas_w, C)``,
     one kernel launch for the whole batch."""
     global batch_launches
-    if _place(True, src_bhwc, orientation, ri0, rw, ci0, cw, canvas_bhwc,
+    if _place("batch", src_bhwc, orientation, ri0, rw, ci0, cw, canvas_bhwc,
               r0, c0):
         batch_launches += 1
+
+
+def resize_place_window(crop: torch.Tensor, ri0: torch.Tensor,
+                        rw: torch.Tensor, ci0: torch.Tensor, cw: torch.Tensor,
+                        region: torch.Tensor) -> None:
+    """Resample one row chunk of a placement: ``crop`` is the oriented HWC
+    uint8 source row window, ``(ri0, rw)`` the chunk's row taps rebased to
+    it, ``(ci0, cw)`` the placement's column taps.  The uint8 result goes to
+    ``region[:n_rows]`` of the ``(rows, n_cols, C)`` region buffer, in
+    place."""
+    global window_launches
+    if region.ndim != 3 or region.shape[1] != ci0.shape[0]:
+        raise ValueError(f"region {tuple(region.shape)} must be (rows, "
+                         f"{ci0.shape[0]}, C)")
+    if _place("window", crop, 1, ri0, rw, ci0, cw, region, 0, 0):
+        window_launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -223,29 +259,36 @@ def _make_steps(plan: LayoutPlan,
     return steps
 
 
+def draw_placement(src: torch.Tensor, p: Placement, step: _Step,
+                   canvas: torch.Tensor, plain: bool) -> None:
+    """Draw placement ``p`` from its raw source into ``canvas`` in place: an
+    HWC source and canvas for one job (kernel #1), ``(B, H, W, C)`` ones for
+    a batch (kernel #2)."""
+    r0, r1 = p.row_span
+    c0, c1 = p.col_span
+    if plain:
+        canvas[..., r0:r1, c0:c1, :] = resize_place_ref(
+            src, p.orientation, *step.taps)
+    elif step.copy is not None:
+        # identity taps on both axes: the resample IS a slice of the
+        # oriented source -- no kernel
+        sr, sc = step.copy
+        oriented = torch_compose.orient(src, p.orientation)
+        canvas[..., r0:r1, c0:c1, :] = oriented[
+            ..., sr:sr + r1 - r0, sc:sc + c1 - c0, :]
+    elif canvas.ndim == 4:
+        resize_place_batch(src, p.orientation, *step.taps, canvas, r0, c0)
+    else:
+        resize_place(src, p.orientation, *step.taps, canvas, r0, c0)
+
+
 def _compose(plan: LayoutPlan, srcs: Sequence[torch.Tensor],
              canvas: torch.Tensor, steps: Sequence[Optional[_Step]],
              plain: bool) -> None:
-    """Draw every placement into ``canvas``: HWC sources and canvas for one
-    job (kernel #1), ``(B, H, W, C)`` ones for a batch (kernel #2)."""
-    place = resize_place_batch if canvas.ndim == 4 else resize_place
+    """Draw every placement into ``canvas``."""
     for src, p, step in zip(srcs, plan.placements, steps):
-        if step is None:
-            continue
-        r0, r1 = p.row_span
-        c0, c1 = p.col_span
-        if plain:
-            canvas[..., r0:r1, c0:c1, :] = resize_place_ref(
-                src, p.orientation, *step.taps)
-        elif step.copy is not None:
-            # identity taps on both axes: the resample IS a slice of the
-            # oriented source -- no kernel
-            sr, sc = step.copy
-            oriented = torch_compose.orient(src, p.orientation)
-            canvas[..., r0:r1, c0:c1, :] = oriented[
-                ..., sr:sr + r1 - r0, sc:sc + c1 - c0, :]
-        else:
-            place(src, p.orientation, *step.taps, canvas, r0, c0)
+        if step is not None:
+            draw_placement(src, p, step, canvas, plain)
 
 
 def stitch(plan: LayoutPlan, images: Sequence[np.ndarray], device,

@@ -40,6 +40,31 @@ assert "jax" not in sys.modules, sorted(
     m for m in sys.modules if m.split(".")[0] == "jax")
 """
 
+_CPU_LADDER = """
+import sys
+import numpy as np
+import imagestitching_tpu_torch as itt
+from imagestitching_tpu.core.layout import ImageSpec, solve
+from imagestitching_tpu.runtime import tiler
+rng = np.random.default_rng(1)
+specs = [ImageSpec(60, 40, 1), ImageSpec(40, 30, 6)]
+imgs = [rng.integers(0, 256, (s.raw_h, s.raw_w, 3), np.uint8) for s in specs]
+opts = itt.StitchOptions(gap=2)
+plan = solve(specs, opts)
+canvas = 3 * plan.canvas_w * plan.canvas_h
+for strategy, hbm in (("streamed", tiler.resident_peak_bytes(plan) - 1),
+                      ("banded", max(canvas // 2,
+                                     tiler.min_feasible_bytes(plan)))):
+    cfg = itt.RuntimeConfig(device="cpu",
+                            budget=itt.MemoryBudget(hbm_bytes=hbm))
+    out, m = itt.stitch_arrays(imgs, specs, opts, cfg, return_metrics=True)
+    assert m.strategy == strategy, m
+import torch
+assert not torch.cuda.is_initialized()
+assert "jax" not in sys.modules, sorted(
+    m for m in sys.modules if m.split(".")[0] == "jax")
+"""
+
 
 _SERVE_IMPORT = """
 import sys
@@ -53,8 +78,9 @@ assert "jax" not in sys.modules, sorted(
 
 
 @pytest.mark.parametrize("script", [_IMPORT_ONLY, _CPU_STITCH,
-                                    _SERVE_IMPORT],
-                         ids=["import", "cpu-stitch", "serve-import"])
+                                    _CPU_LADDER, _SERVE_IMPORT],
+                         ids=["import", "cpu-stitch", "cpu-ladder",
+                              "serve-import"])
 def test_port_never_loads_jax(script):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=_ROOT,
@@ -79,6 +105,7 @@ def test_kernel_source_is_in_the_package():
         src = f.read()
     assert 'extern "C"' in src and "int resize_place_launch(" in src
     assert "int resize_place_batch_launch(" in src
+    assert "int resize_place_window_launch(" in src
 
 
 def test_server_module_runs_with_help():

@@ -1,5 +1,5 @@
 """The port's slice end to end on the CPU: ``stitch_arrays`` -> ``solve`` ->
-``pipeline.run`` -> resident strategy -> resize-and-place -> uint8 canvas,
+``pipeline.run`` -> strategy -> resize-and-place -> uint8 canvas,
 against the JAX package's ``stitch_arrays`` (Pallas kernel in interpret
 mode) and the float64 oracle.
 
@@ -157,6 +157,10 @@ def test_stitch_metrics_fields_match_jax():
 
 @pytest.mark.parametrize("strategy", ["streamed", "banded"])
 def test_budget_beyond_resident_raises_not_implemented(strategy):
+    """A budget below the resident peak runs the strategy the tiler picks,
+    with nothing raising NotImplementedError: the canvas equals the resident
+    one bit for bit, and the JAX package's same strategy (Pallas interpret)
+    and the oracle within 1 step."""
     imgs, shapes, opts = _job("config3-small")
     plan = solve(_specs(shapes), opts)
     budget = tiler.resident_peak_bytes(plan) - 1
@@ -164,9 +168,17 @@ def test_budget_beyond_resident_raises_not_implemented(strategy):
         budget = 3 * plan.canvas_w * plan.canvas_h    # the canvas alone
     budget = MemoryBudget(hbm_bytes=budget)
     assert tiler.plan_execution(plan, budget).strategy == strategy
-    with pytest.raises(NotImplementedError, match=strategy):
-        api.stitch_arrays(imgs, _specs(shapes), opts,
-                          RuntimeConfig(device="cpu", budget=budget))
+    got, m = api.stitch_arrays(imgs, _specs(shapes), opts,
+                               RuntimeConfig(device="cpu", budget=budget),
+                               return_metrics=True)
+    assert m.strategy == strategy
+    np.testing.assert_array_equal(
+        got, api.stitch_arrays(imgs, _specs(shapes), opts, CPU))
+    jax_out, jm = jax_pipeline.run(plan, imgs, JaxRuntimeConfig(
+        engine="pallas", interpret=True, budget=budget))
+    assert jm.strategy == strategy
+    assert _maxdiff(got, np.asarray(jax_out)) <= 1
+    assert _maxdiff(got, _oracle(imgs, shapes, opts)) <= 1
 
 
 def test_stitch_items_with_orientations_and_file_round_trip(tmp_path):
@@ -243,12 +255,28 @@ def test_is_oom(exc, oom):
 
 
 def test_resident_oom_surfaces_as_memory_error(monkeypatch):
+    """An OOM on every rung -- resident, streamed and every banded band --
+    surfaces as MemoryError, chained to the last OOM; an OOM on the
+    resident rung alone demotes (tests/test_torch_recovery.py)."""
+    from imagestitching_tpu.runtime.logger import StitchLogger, set_logger
     from imagestitching_tpu_torch.ops import cuda_resize
 
     def exhausted(*a, **k):
         raise torch.cuda.OutOfMemoryError("CUDA out of memory")
 
-    monkeypatch.setattr(cuda_resize, "stitch", exhausted)
+    monkeypatch.setattr(cuda_resize, "resize_place_ref", exhausted)
     imgs, shapes, opts = _job("config3-small")
-    with pytest.raises(MemoryError, match="resident"):
-        api.stitch_arrays(imgs, _specs(shapes), opts, CPU)
+    log = StitchLogger()
+    set_logger(log)
+    try:
+        with pytest.raises(MemoryError, match="every strategy") as info:
+            api.stitch_arrays(imgs, _specs(shapes), opts, CPU)
+    finally:
+        set_logger(StitchLogger())
+    assert isinstance(info.value.__cause__, torch.cuda.OutOfMemoryError)
+    plan = solve(_specs(shapes), opts)
+    ladder = pipeline._strategy_ladder(
+        tiler.plan_execution(plan, CPU.budget), plan)
+    assert [(e["failed"], e["band"]) for e in log.ring()
+            if e["tag"] == "pipeline.oom_retry"] == ladder
+    assert [s for s, _ in ladder[:3]] == ["resident", "streamed", "banded"]

@@ -191,6 +191,36 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         cuda_resize.resize_place(src, o, *taps, canvas, r0, c0)
 
 
+def test_window_wrapper_on_cpu_runs_plain_version_without_launching():
+    """Kernel #3's wrapper on CPU tensors: the plain version into the top
+    rows of the region buffer, nothing else touched, no launch counted."""
+    crop, taps, _ = _cpu_operands()
+    region = torch.zeros((16, 12, 3), dtype=torch.uint8)
+    before = cuda_resize.window_launches
+    cuda_resize.resize_place_window(crop, *taps, region)
+    assert cuda_resize.window_launches == before
+    want = cuda_resize.resize_place_window_ref(crop, *taps)
+    assert torch.equal(want, cuda_resize.resize_place_ref(crop, 1, *taps))
+    assert torch.equal(region[:10], want) and int(region[10:].sum()) == 0
+
+
+@pytest.mark.parametrize("bad", ["region-width", "region-rows", "float-crop",
+                                 "region-2d"])
+def test_window_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    crop, taps, _ = _cpu_operands()
+    region = torch.zeros((16, 12, 3), dtype=torch.uint8)
+    if bad == "region-width":
+        region = torch.zeros((16, 13, 3), dtype=torch.uint8)
+    elif bad == "region-rows":
+        region = torch.zeros((9, 12, 3), dtype=torch.uint8)
+    elif bad == "float-crop":
+        crop = crop.float()
+    else:
+        region = torch.zeros((16, 12), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        cuda_resize.resize_place_window(crop, *taps, region)
+
+
 def test_kernel_build_flags_and_missing_nvcc(monkeypatch):
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
