@@ -5,6 +5,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+``--parent-source PATH`` also builds a previous kernel source (for example
+``git show HEAD~1:imagestitching_tpu_torch/csrc/resize_place.cu``) into a
+temporary directory and times that body beside the current one.
+
 Phases, one line each; any failure exits non-zero and prints no result:
 
 1. environment: torch, CUDA, the card's name and power limit (nvidia-smi);
@@ -12,16 +16,20 @@ Phases, one line each; any failure exits non-zero and prints no result:
    with nvcc for sm_90a;
 3. the kernel against its plain PyTorch version on the card, bit for bit
    (bilinear up and down with fractional offsets, all 8 EXIF orientations,
-   the triangle/box/lanczos3 filters, 1 and 3 channels), each job also
+   the triangle/box/lanczos3 filters, 1 and 3 channels; tiles cut by the
+   region's edge at odd canvas columns, a 12x bilinear downscale of a
+   transposed source, lanczos3 with K = 97, a 4x upscale), each job also
    against the float64 oracle within 1 step;
 4. the slice at real size: BASELINE config 3 (9 photos of 1-3 MP with EXIF
    orientations, horizontal, mode "min", gap 4) through
    ``imagestitching_tpu_torch.stitch`` on ``cuda``, three times, counting
    kernel launches, checked against the oracle;
 5. export: ``stitch_to_file(stream=False)`` to PNG, decoded back;
-6. kernel and plain-version times (CUDA events, and the profiler's device
-   time) at config 3's shapes, and the kernel's store checked bit for bit
-   against the plain version's;
+6. kernel times (CUDA events, and the profiler's device busy time) at
+   config 3's shapes beside the plain version's, the parent body's (with
+   ``--parent-source``), one ``F.interpolate`` call's and the bound (tap
+   footprint read once and regions written, at 3.35 TB/s); the kernel's
+   store checked bit for bit against the plain version's;
 7. where a warm config-3 job's time goes on the device (torch.profiler);
 8. the batched kernel against its plain version on the card, bit for bit,
    over phase 3's cases at B = 3 with other data per job, and against B
@@ -32,12 +40,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
    resampled placement (counted), every job equal to the single-job path
    bit for bit, three jobs within 1 step of the oracle with the copy span
    exact; flush wall, jobs/s and MP/s, and a profiled warm flush;
-10. batched kernel and plain-version times at config 5's shapes (B = 64);
+10. the same yardsticks for the batched kernel at config 5's shapes
+    (B = 64);
 11. HTTP: ``StitchHTTPServer`` on localhost answers 4 concurrent
     ``POST /stitch`` with what ``imagestitching_tpu_torch.stitch`` gives;
 12. the windowed kernel (#3) against its plain version on the card, bit for
-    bit, over phase 3's cases in 16-row chunks, and each case's banded
-    canvas against the resident one;
+    bit, over phase 3's cases in 16-row chunks, each chunk both from its
+    rebased taps and from the placement's taps with its row offset, and
+    each case's banded canvas against the resident one;
 13. BASELINE config 4 at real size with EXIF orientations (9 x 4000x3000,
     orientations 1,6,3,8,1,5,2,7,4, vertical, mode "min", gap 4) through
     ``imagestitching_tpu_torch.stitch`` on ``cuda`` under three budgets, one
@@ -50,14 +60,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
     job under a per-process memory cap that the resident rung cannot meet
     demotes to streamed, and under one below the canvas to banded, both
     equal to the resident canvas;
-15. windowed kernel and plain-version times at config 4's chunk shapes, and
-    where a streamed and a banded job's time goes (torch.profiler).
+15. the same yardsticks for the windowed kernel over config 4's 45 chunks
+    as the banded rung launches them, the host time per launch, and where
+    a streamed and a banded job's time goes (torch.profiler), the banded
+    one with no per-chunk tap upload.
 
 Each kernel's launch count is read from its own path: phase 4 for the
 single-job kernel, phase 9 for the batched one, phase 13's banded run for
 the windowed one, each with the counts set to 0 just before.  The last two
 lines are a JSON record of the kernels and the device line ``{"ok": true,
-"device": {...}}``.  Imports nothing of JAX.
+"device": {...}}``.  Imports nothing of the JAX package.  Before them the
+card's name and power limit, as ``nvidia-smi`` gives them.
 """
 
 from __future__ import annotations
@@ -158,6 +171,127 @@ def device_ms(fn, reps=20):
     return busy / 1e3 / reps, wall * 1e3 / reps, by_name
 
 
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, HBM3 peak
+
+
+def counts_ms(fn, reps=3):
+    """``device_ms`` plus the number of device activities of each name per
+    call of ``fn``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return {k: v / reps for k, v in counts.items()}
+
+
+def footprint_bytes(ri0, rw, m_h, ci0, cw, m_w, channels):
+    """Bytes of source one resample must read: the rows and cols that its
+    taps of non-zero weight touch (clamped as the kernel clamps them), each
+    read once."""
+    def touched(i0, w, m):
+        idx = np.clip(i0[:, None].astype(np.int64)
+                      + np.arange(w.shape[1])[None, :], 0, m - 1)
+        return np.unique(idx[w != 0]).size
+
+    return (touched(np.asarray(ri0), np.asarray(rw), m_h)
+            * touched(np.asarray(ci0), np.asarray(cw), m_w) * channels)
+
+
+def bound_ms(nbytes):
+    """The least time the card could take to move ``nbytes``."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def interp_call(src, orientation, n_rows, n_cols, kind):
+    """One PyTorch call that computes the placement's resample for a whole
+    placement, ``F.interpolate`` (bilinear, antialiased for triangle), on
+    the oriented source as float32 NCHW made here, outside any timed
+    window.  Returns the call."""
+    import torch
+    import torch.nn.functional as F
+    from imagestitching_tpu_torch.ops import torch_compose
+
+    x = torch_compose.orient(src if src.ndim == 4 else src[None],
+                             orientation)
+    x = x.permute(0, 3, 1, 2).float().contiguous()
+    return lambda: F.interpolate(x, size=(n_rows, n_cols), mode="bilinear",
+                                 align_corners=False,
+                                 antialias=kind == "triangle")
+
+
+def load_parent(source):
+    """The parent commit's kernel library, built from ``source`` (its
+    ``csrc/resize_place.cu``) with the port's nvcc flags into a temporary
+    directory, for timing beside the current body.  Its entries are bound
+    with the parent's signatures."""
+    import ctypes
+    from imagestitching_tpu_torch.ops import _build
+
+    out = os.path.join(tempfile.mkdtemp(prefix="parent_kernel_"),
+                       "libparent.so")
+    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", out, source]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"parent build: {proc.stderr[-2000:]}")
+    lib = ctypes.CDLL(out)
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    taps = [p, p, i32, i32, p, p, i32, i32]
+    lib.resize_place_launch.argtypes = [p, i64, i64, i32, i32, *taps, p, i64,
+                                        i64, i64, i64, p]
+    lib.resize_place_batch_launch.argtypes = [p, i32, i64, i64, i64, i32,
+                                              i32, *taps, p, i64, i64, i64,
+                                              i64, i64, p]
+    lib.resize_place_window_launch.argtypes = [p, i64, i64, i32, *taps, p,
+                                               i64, p]
+    for f in (lib.resize_place_launch, lib.resize_place_batch_launch,
+              lib.resize_place_window_launch):
+        f.restype = i32
+    return lib
+
+
+def parent_call(lib, entry, src, orientation, taps, canvas, r0=0, c0=0):
+    """One launch of the parent body (``entry``: one, batch or window)
+    with the current stream, as the port's wrappers made it."""
+    import ctypes
+
+    import torch
+
+    ptr = ctypes.c_void_p
+    t = (ptr(taps[0].data_ptr()), ptr(taps[1].data_ptr()), taps[0].shape[0],
+         taps[1].shape[1], ptr(taps[2].data_ptr()), ptr(taps[3].data_ptr()),
+         taps[2].shape[0], taps[3].shape[1])
+    h, w, c = src.shape[-3:]
+
+    def call():
+        stream = ptr(torch.cuda.current_stream().cuda_stream)
+        if entry == "batch":
+            err = lib.resize_place_batch_launch(
+                ptr(src.data_ptr()), src.shape[0], src.stride(0), h, w, c,
+                orientation, *t, ptr(canvas.data_ptr()), canvas.stride(0),
+                canvas.shape[1], canvas.shape[2], r0, c0, stream)
+        elif entry == "window":
+            err = lib.resize_place_window_launch(
+                ptr(src.data_ptr()), h, w, c, *t, ptr(canvas.data_ptr()),
+                canvas.shape[0], stream)
+        else:
+            err = lib.resize_place_launch(
+                ptr(src.data_ptr()), h, w, c, orientation, *t,
+                ptr(canvas.data_ptr()), canvas.shape[0], canvas.shape[1],
+                r0, c0, stream)
+        check(err == 0, f"parent {entry} launch: error {err}")
+    return call
+
+
 def taps_on(p, kind, dev):
     """A placement's taps (ri0, rw, ci0, cw) on ``dev``."""
     import torch
@@ -178,12 +312,126 @@ def src_on(raw, dev):
 
 def resampled(plan):
     """The placements of ``plan`` that go through a kernel."""
-    from imagestitching_tpu.core import geometry
+    from imagestitching_tpu_torch.core import geometry
 
     return [p for p in plan.placements
             if p.row_span[1] > p.row_span[0]
             and p.col_span[1] > p.col_span[0]
             and geometry.placement_copy_offsets(p, plan.filter) is None]
+
+
+def _yardsticks(parts):
+    """Sum the per-launch yardsticks of ``parts`` (dicts of numbers, None
+    where not measured)."""
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            out[k] = None if v is None or out.get(k, 0) is None \
+                else out.get(k, 0) + v
+    return out
+
+
+def _fmt(v):
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def time_four(kernel, plain, parent, library, device_reps=20, **kw):
+    """Per call, by CUDA events (median of two rounds in the order plain,
+    kernel, parent, library, library, parent, kernel, plain) and the
+    profiler's device busy time, of the kernel, its plain version, the
+    parent body (None: not measured) and the library call."""
+    fns = {"kernel": kernel, "plain": plain, "parent": parent,
+           "library": library}
+    order = ["plain", "kernel", "parent", "library"]
+    ev = {k: [] for k in order}
+    for name in order + order[::-1]:
+        if fns[name] is not None:
+            ev[name].append(median_ms(fns[name], **kw))
+    out = {}
+    for name in order:
+        f = fns[name]
+        out[name + "_ms"] = statistics.median(ev[name]) if f else None
+        busy = None
+        for _ in range(3 if f else 0):   # the profiler now and then
+            busy = device_ms(f, reps=device_reps)[0]  # records no activity
+            if busy > 0:
+                break
+        out[name + "_busy"] = busy
+    return out
+
+
+def phase6_times(dev, smi, plan, imgs, parent):
+    """Kernel #1 at config 3's placements: CUDA events and busy time beside
+    the parent body, ``F.interpolate`` (the library call) and the plain
+    version, the bound, and the kernel's store bit for bit against the
+    plain version's (and the parent's)."""
+    import torch
+    from imagestitching_tpu_torch.core import geometry
+    from imagestitching_tpu_torch.ops import cuda_resize
+
+    canvas = torch.zeros((plan.canvas_h, plan.canvas_w, 3),
+                         dtype=torch.uint8, device=dev)
+    other = torch.zeros_like(canvas)
+    parts, rows, worst, ndiff, nparent = [], [], 0, 0, 0
+    for p in resampled(plan):
+        src = src_on(imgs[p.index], dev)
+        taps = taps_on(p, plan.filter, dev)
+        r0, r1 = p.row_span
+        c0, c1 = p.col_span
+
+        def kernel(src=src, taps=taps, p=p, r0=r0, c0=c0):
+            cuda_resize.resize_place(src, p.orientation, *taps, canvas,
+                                     r0, c0)
+
+        def plain(src=src, taps=taps, p=p, r0=r0, r1=r1, c0=c0, c1=c1):
+            canvas[r0:r1, c0:c1] = cuda_resize.resize_place_ref(
+                src, p.orientation, *taps)
+
+        old = None if parent is None else parent_call(
+            parent, "one", src, p.orientation, taps, other, r0, c0)
+        t = time_four(kernel, plain, old, interp_call(
+            src, p.orientation, r1 - r0, c1 - c0, plan.filter))
+        kernel()
+        got = canvas[r0:r1, c0:c1].clone()
+        plain()
+        d = (got.int() - canvas[r0:r1, c0:c1].int()).abs()
+        worst = max(worst, int(d.max()))
+        ndiff += int((d > 0).any(dim=2).sum())
+        if old is not None:
+            old()
+            nparent += int((other[r0:r1, c0:c1] != got).any(dim=2).sum())
+        disp_w, disp_h = geometry.display_size(p.raw_w, p.raw_h,
+                                               p.orientation)
+        nbytes = footprint_bytes(*(x.cpu().numpy() for x in taps[:2]),
+                                 disp_h, *(x.cpu().numpy() for x in taps[2:]),
+                                 disp_w, 3) + (r1 - r0) * (c1 - c0) * 3
+        t["bound_ms"] = bound_ms(nbytes)
+        t["bytes"] = nbytes
+        parts.append(t)
+        rows.append(f"#{p.index} o{p.orientation} {p.raw_w}x{p.raw_h}->"
+                    f"{c1 - c0}x{r1 - r0} kernel {t['kernel_ms']:.4f} "
+                    f"({t['kernel_busy']:.4f}) parent {_fmt(t['parent_ms'])} "
+                    f"({_fmt(t['parent_busy'])}) F.interpolate "
+                    f"{t['library_ms']:.4f} ({t['library_busy']:.4f}) plain "
+                    f"{t['plain_ms']:.4f} ({t['plain_busy']:.4f}) bound "
+                    f"{t['bound_ms']:.4f} ({nbytes} bytes)")
+    check(worst == 0 and ndiff == 0, f"config 3 kernel vs plain max "
+          f"|diff| {worst}, {ndiff} differing pixels (must be exact)")
+    check(nparent == 0, f"config 3: {nparent} pixels unlike the parent body")
+    tot = _yardsticks(parts)
+    say(f"phase6 times (ms per launch; CUDA events, median of 20x10 "
+        f"launches in two rounds plain kernel parent F.interpolate and back; "
+        f"in brackets the profiler's device busy time; bound = tap "
+        f"footprint read once + region written at 3.35 TB/s) on {smi}: "
+        + " | ".join(rows) + f" | total kernel {tot['kernel_ms']:.4f} "
+        f"({tot['kernel_busy']:.4f}) parent {_fmt(tot['parent_ms'])} "
+        f"({_fmt(tot['parent_busy'])}) F.interpolate "
+        f"{tot['library_ms']:.4f} ({tot['library_busy']:.4f}) plain "
+        f"{tot['plain_ms']:.4f} ({tot['plain_busy']:.4f}) bound "
+        f"{tot['bound_ms']:.4f} | kernel vs plain max |diff| {worst}, "
+        f"differing px {ndiff}, unlike parent {nparent}")
+    tot["worst"] = worst
+    return tot
 
 
 # BASELINE config 5 (BASELINE.md:37, benchmarks/run_all.py:111-121): 64
@@ -200,7 +448,7 @@ def phase8_batch_vs_plain(cases, dev, batch=3) -> int:
     cases at B = ``batch`` with other data per job, and against ``batch``
     single launches of kernel #1.  Returns the worst max |diff|."""
     import torch
-    from imagestitching_tpu.core.layout import ImageSpec, solve
+    from imagestitching_tpu_torch.core.layout import ImageSpec, solve
     from imagestitching_tpu_torch.ops import cuda_resize
 
     rng = np.random.default_rng(8)
@@ -250,8 +498,8 @@ def phase9_config5(dev, smi, budget, shapes=CONFIG5, batch=BATCH5):
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
-    from imagestitching_tpu.core import geometry, oracle
-    from imagestitching_tpu.core.layout import ImageSpec, solve
+    from imagestitching_tpu_torch.core import geometry, oracle
+    from imagestitching_tpu_torch.core.layout import ImageSpec, solve
     from imagestitching_tpu_torch import (RuntimeConfig, StitchOptions,
                                           StitchServer)
     from imagestitching_tpu_torch.ops import cuda_resize
@@ -348,19 +596,20 @@ def phase9_config5(dev, smi, budget, shapes=CONFIG5, batch=BATCH5):
     return plan, stacks, launches_main
 
 
-def phase10_batch_times(dev, smi, plan, stacks):
-    """Kernel #2 and its plain version timed at config 5's placements and
-    batch size, its store checked bit for bit.  Returns (max |diff|,
-    kernel ms, plain ms) summed over the placements."""
+def phase10_batch_times(dev, smi, plan, stacks, parent):
+    """Kernel #2 at config 5's placements and batch size: CUDA events and
+    busy time beside the parent body, ``F.interpolate`` and the plain
+    version, the bound, and its store bit for bit against the plain
+    version's (and the parent's).  Returns the summed yardsticks."""
     import torch
+    from imagestitching_tpu_torch.core import geometry
     from imagestitching_tpu_torch.ops import cuda_resize
 
     batch = stacks[0].shape[0]
     canvas = torch.zeros((batch, plan.canvas_h, plan.canvas_w, 3),
                          dtype=torch.uint8, device=dev)
-    k_total = p_total = kd_total = pd_total = 0.0
-    worst = ndiff = 0
-    rows = []
+    other = torch.zeros_like(canvas) if parent is not None else None
+    parts, rows, worst, ndiff, nparent = [], [], 0, 0, 0
     for p in resampled(plan):
         src = torch.from_numpy(stacks[p.index]).to(dev)
         taps = taps_on(p, plan.filter, dev)
@@ -375,36 +624,55 @@ def phase10_batch_times(dev, smi, plan, stacks):
             canvas[:, r0:r1, c0:c1] = cuda_resize.resize_place_batch_ref(
                 src, p.orientation, *taps)
 
-        plain_a = median_ms(plain, reps=5, inner=2)
-        kern_a = median_ms(kernel, reps=5, inner=2)
+        old = None if parent is None else parent_call(
+            parent, "batch", src, p.orientation, taps, other, r0, c0)
+        library = interp_call(src, p.orientation, r1 - r0, c1 - c0,
+                              plan.filter)
+        t = time_four(kernel, plain, old, library, device_reps=3, reps=5,
+                      inner=2)
+        del library
+        kernel()
         got = canvas[:, r0:r1, c0:c1].clone()
         plain()
         d = (got.int() - canvas[:, r0:r1, c0:c1].int()).abs()
         worst = max(worst, int(d.max()))
         ndiff += int((d > 0).any(dim=3).sum())
+        if old is not None:
+            old()
+            nparent += int((other[:, r0:r1, c0:c1] != got).any(dim=3).sum())
         del got, d
-        kern_b = median_ms(kernel, reps=5, inner=2)
-        plain_b = median_ms(plain, reps=5, inner=2)
-        k_ms = statistics.median([kern_a, kern_b])
-        p_ms = statistics.median([plain_a, plain_b])
-        k_dev = device_ms(kernel, reps=3)[0]
-        p_dev = device_ms(plain, reps=3)[0]
-        k_total += k_ms
-        p_total += p_ms
-        kd_total += k_dev
-        pd_total += p_dev
+        disp_w, disp_h = geometry.display_size(p.raw_w, p.raw_h,
+                                               p.orientation)
+        nbytes = batch * (footprint_bytes(
+            *(x.cpu().numpy() for x in taps[:2]), disp_h,
+            *(x.cpu().numpy() for x in taps[2:]), disp_w, 3)
+            + (r1 - r0) * (c1 - c0) * 3)
+        t["bound_ms"] = bound_ms(nbytes)
+        t["bytes"] = nbytes
+        parts.append(t)
         rows.append(f"#{p.index} {p.raw_w}x{p.raw_h}->{c1 - c0}x{r1 - r0} "
-                    f"kernel {k_ms:.4f} ({k_dev:.4f}) plain {p_ms:.4f} "
-                    f"({p_dev:.4f})")
+                    f"kernel {t['kernel_ms']:.4f} ({t['kernel_busy']:.4f}) "
+                    f"parent {_fmt(t['parent_ms'])} "
+                    f"({_fmt(t['parent_busy'])}) F.interpolate "
+                    f"{t['library_ms']:.4f} ({t['library_busy']:.4f}) plain "
+                    f"{t['plain_ms']:.4f} ({t['plain_busy']:.4f}) bound "
+                    f"{t['bound_ms']:.4f}")
     check(worst == 0 and ndiff == 0, f"config 5 batched kernel vs plain max "
           f"|diff| {worst}, {ndiff} differing pixels (must be exact)")
+    check(nparent == 0, f"config 5: {nparent} pixels unlike the parent body")
+    tot = _yardsticks(parts)
     say(f"phase10 batched times at B={batch} (ms per launch; CUDA events, "
-        f"median of 5x2, order plain kernel kernel plain; in brackets the "
-        f"profiler's device busy time) on {smi}: " + " | ".join(rows)
-        + f" | total kernel {k_total:.4f} ({kd_total:.4f}) plain "
-        f"{p_total:.4f} ({pd_total:.4f}) | kernel vs plain max |diff| "
-        f"{worst}, differing px {ndiff}")
-    return worst, k_total, p_total
+        f"median of 5x2 in two rounds plain kernel parent F.interpolate and "
+        f"back; in brackets the profiler's device busy time) on {smi}: "
+        + " | ".join(rows) + f" | total kernel {tot['kernel_ms']:.4f} "
+        f"({tot['kernel_busy']:.4f}) parent {_fmt(tot['parent_ms'])} "
+        f"({_fmt(tot['parent_busy'])}) F.interpolate "
+        f"{tot['library_ms']:.4f} ({tot['library_busy']:.4f}) plain "
+        f"{tot['plain_ms']:.4f} ({tot['plain_busy']:.4f}) bound "
+        f"{tot['bound_ms']:.4f} ({tot['bytes']} bytes) | kernel vs plain "
+        f"max |diff| {worst}, differing px {ndiff}, unlike parent {nparent}")
+    tot["worst"] = worst
+    return tot
 
 
 REPLACES_WINDOW = "imagestitching_tpu/ops/pallas_resize.py:721"
@@ -425,28 +693,33 @@ def phase12_window_vs_plain(cases, dev, chunk_rows=16) -> int:
     chunk height against ``cuda_resize.stitch``.  Returns the worst max
     |diff|."""
     import torch
-    from imagestitching_tpu.core import geometry
-    from imagestitching_tpu.core.layout import ImageSpec, solve
+    from imagestitching_tpu_torch.core import geometry
+    from imagestitching_tpu_torch.core.layout import ImageSpec, solve
     from imagestitching_tpu_torch.ops import cuda_resize
     from imagestitching_tpu_torch.ops.window import WindowPlan
     from imagestitching_tpu_torch.runtime import pipeline
 
     rng = np.random.default_rng(12)
-    worst_all, notes = 0, []
+    worst_all, shifted_all, notes = 0, 0, []
     for name, shapes, opts, limits, c in cases:
         plan = solve([ImageSpec(w, h, o) for w, h, o in shapes], opts,
                      limits)
         imgs = [rng.integers(0, 256, (h, w, c), np.uint8)
                 for w, h, _ in shapes]
-        worst = ndiff = chunks = 0
+        worst = ndiff = chunks = shifted = 0
         for p in resampled(plan):
             oriented = geometry.orient_array(imgs[p.index], p.orientation)
             wp = WindowPlan(p, plan.filter, chunk_rows)
-            ci0, cw = (torch.from_numpy(a).to(dev) for a in (wp.ci0, wp.cw))
+            taps = [torch.from_numpy(a).to(dev)
+                    for a in (wp.ri0, wp.rw, wp.ci0, wp.cw)]
+            ci0, cw = taps[2:]
             region = torch.zeros((wp.chunk, wp.n_cols, c), dtype=torch.uint8,
                                  device=dev)
+            once = torch.zeros_like(region)
+            launch = cuda_resize.WindowLauncher(
+                *taps, once, (wp.crop_rows, wp.disp_w, c))
             for g in range(wp.n_chunks):
-                _, valid, _ = wp.chunk_window(g)
+                a, valid, s_lo = wp.chunk_window(g)
                 crop = torch.from_numpy(wp.stage_crop(oriented, g)).to(dev)
                 ri0, rw = (torch.from_numpy(t).to(dev)
                            for t in wp.chunk_taps(g))
@@ -457,6 +730,13 @@ def phase12_window_vs_plain(cases, dev, chunk_rows=16) -> int:
                 d = (region[:valid].int() - ref.int()).abs()
                 worst = max(worst, int(d.max()))
                 ndiff += int((d > 0).any(dim=2).sum())
+                # the banded rung's form: the placement's taps, the chunk's
+                # first row a and crop start s_lo
+                launch(crop, a, s_lo, valid)
+                d = (once[:valid].int() - ref.int()).abs()
+                worst = max(worst, int(d.max()))
+                ndiff += int((d > 0).any(dim=2).sum())
+                shifted += s_lo > 0
                 chunks += 1
         banded, _ = pipeline._run_banded(plan, imgs, c, chunk_rows, "auto",
                                          dev, _noop)
@@ -465,11 +745,15 @@ def phase12_window_vs_plain(cases, dev, chunk_rows=16) -> int:
               f"max |diff| {worst}, {ndiff} differing pixels (must be exact)")
         check(np.array_equal(banded, resident), f"{name}: banded canvas "
               "differs from the resident one")
+        shifted_all += shifted
         worst_all = max(worst_all, worst)
-        notes.append(f"{name}:{worst}/{ndiff}/{chunks}")
+        notes.append(f"{name}:{worst}/{ndiff}/{chunks}/{shifted}")
+    check(shifted_all > 0, "no chunk with a non-zero crop start")
     say(f"phase12 windowed kernel vs plain in {chunk_rows}-row chunks "
-        f"(exact), banded canvas equal to resident: {len(cases)} cases max "
-        f"|diff| {worst_all} | case:max_diff/differing_px/chunks "
+        f"(exact), each chunk from its rebased taps and from the placement's "
+        f"taps with its row offset, banded canvas equal to resident: "
+        f"{len(cases)} cases max |diff| {worst_all} | "
+        f"case:max_diff/differing_px/chunks/chunks_with_offset "
         + " ".join(notes))
     return worst_all
 
@@ -478,7 +762,7 @@ def _config4_job(dev, shapes, seed):
     """(plan, options, raw images, (array, orientation) items) of a
     config-4 job, the pixels made on the card from a seed."""
     import torch
-    from imagestitching_tpu.core.layout import ImageSpec, solve
+    from imagestitching_tpu_torch.core.layout import ImageSpec, solve
     from imagestitching_tpu_torch import StitchOptions
 
     opts = StitchOptions(direction="vertical", mode="min", gap=4,
@@ -494,7 +778,7 @@ def _oracle_spots(plan, imgs, out, band_rows):
     """Max |diff| against ``oracle.stitch_rows`` over 4 rows around every
     chunk boundary and edge of each resampled placement, and over rows at
     both ends and the middle of each copy span (which must be 0)."""
-    from imagestitching_tpu.core import geometry, oracle
+    from imagestitching_tpu_torch.core import geometry, oracle
     from imagestitching_tpu_torch.ops.window import WindowPlan
 
     def diff(lo, hi):
@@ -525,7 +809,7 @@ def phase13_config4(dev, smi, shapes=CONFIG4, big=CONFIG4_24MP):
     banded run)."""
     import torch
     import imagestitching_tpu_torch as itt
-    from imagestitching_tpu.runtime import tiler
+    from imagestitching_tpu_torch.runtime import tiler
     from imagestitching_tpu_torch import MemoryBudget, RuntimeConfig
     from imagestitching_tpu_torch.config import budget_from_device
     from imagestitching_tpu_torch.ops import cuda_resize
@@ -628,7 +912,7 @@ def phase14_ladder(dev, smi, plan, opts, items, ref):
     cap below the canvas to banded."""
     import torch
     import imagestitching_tpu_torch as itt
-    from imagestitching_tpu.runtime.logger import StitchLogger, set_logger
+    from imagestitching_tpu_torch.runtime.logger import StitchLogger, set_logger
     from imagestitching_tpu_torch import RuntimeConfig
     from imagestitching_tpu_torch.config import budget_from_device
 
@@ -671,68 +955,120 @@ def phase14_ladder(dev, smi, plan, opts, items, ref):
         + " | ".join(rows))
 
 
-def phase15_window_times(dev, smi, plan, opts, items, band_rows=256):
-    """Kernel #3 and its plain version timed over every chunk of config 4's
-    banded job (crops and taps already on the card), checked bit for bit;
-    then a streamed and a banded job under torch.profiler.  Returns (max
-    |diff|, kernel ms, plain ms) per job."""
+def phase15_window_times(dev, smi, plan, opts, items, parent,
+                         band_rows=256):
+    """Kernel #3 over every chunk of config 4's banded job (crops and the
+    placements' taps already on the card, launched as the banded rung
+    launches it: one ``WindowLauncher`` per placement, per chunk its first
+    tap row and crop start): CUDA events and busy time beside the parent
+    body (rebased taps per chunk), ``F.interpolate`` over the five whole
+    placements and the plain version, the bound, the host time per launch,
+    and the kernel's chunks bit for bit against the plain version's; then a
+    streamed and a banded job under torch.profiler.  Returns the summed
+    yardsticks."""
     import torch
     import imagestitching_tpu_torch as itt
-    from imagestitching_tpu.core import geometry
-    from imagestitching_tpu.runtime import tiler
+    from imagestitching_tpu_torch.core import geometry
+    from imagestitching_tpu_torch.runtime import tiler
     from imagestitching_tpu_torch import MemoryBudget, RuntimeConfig
     from imagestitching_tpu_torch.ops import cuda_resize
     from imagestitching_tpu_torch.ops.window import WindowPlan
 
-    chunks, regions = [], {}
+    chunks, regions, libs, nbytes = [], {}, [], 0
     for p in resampled(plan):
         oriented = geometry.orient_array(items[p.index][0], p.orientation)
         wp = WindowPlan(p, plan.filter, band_rows)
-        ci0, cw = (torch.from_numpy(a).to(dev) for a in (wp.ci0, wp.cw))
-        regions[p.index] = torch.zeros((wp.chunk, wp.n_cols, 3),
-                                       dtype=torch.uint8, device=dev)
+        taps = [torch.from_numpy(x).to(dev)
+                for x in (wp.ri0, wp.rw, wp.ci0, wp.cw)]
+        region = torch.zeros((wp.chunk, wp.n_cols, 3), dtype=torch.uint8,
+                             device=dev)
+        regions[p.index] = region
+        launch = cuda_resize.WindowLauncher(*taps, region,
+                                            (wp.crop_rows, wp.disp_w, 3))
+        libs.append(interp_call(torch.from_numpy(np.ascontiguousarray(
+            oriented)).to(dev), 1, wp.n_rows, wp.n_cols, plan.filter))
         for g in range(wp.n_chunks):
-            _, valid, _ = wp.chunk_window(g)
-            chunks.append((p.index, valid, torch.from_numpy(
-                wp.stage_crop(oriented, g)).to(dev),
-                *(torch.from_numpy(t).to(dev) for t in wp.chunk_taps(g)),
-                ci0, cw))
+            a, valid, s_lo = wp.chunk_window(g)
+            crop = torch.from_numpy(wp.stage_crop(oriented, g)).to(dev)
+            i0, w = wp.chunk_taps(g)
+            rebased = [torch.from_numpy(t).to(dev) for t in (i0, w)]
+            nbytes += footprint_bytes(i0, w, wp.crop_rows, wp.ci0, wp.cw,
+                                      wp.disp_w, 3) + valid * wp.n_cols * 3
+            chunks.append((p.index, launch, crop, a, s_lo, valid, taps,
+                           rebased))
+    other = {i: torch.zeros_like(r) for i, r in regions.items()}
 
     def kernel():
-        for idx, _, crop, ri0, rw, ci0, cw in chunks:
-            cuda_resize.resize_place_window(crop, ri0, rw, ci0, cw,
-                                            regions[idx])
+        for _, launch, crop, a, s_lo, valid, _, _ in chunks:
+            launch(crop, a, s_lo, valid)
 
     def plain():
-        for idx, valid, crop, ri0, rw, ci0, cw in chunks:
+        for idx, _, crop, a, s_lo, valid, taps, _ in chunks:
             regions[idx][:valid] = cuda_resize.resize_place_window_ref(
-                crop, ri0, rw, ci0, cw)
+                crop, *taps, a, s_lo, valid)
 
-    plain_a = median_ms(plain, reps=5, inner=1)
-    kern_a = median_ms(kernel, reps=5, inner=1)
-    kern_b = median_ms(kernel, reps=5, inner=1)
-    plain_b = median_ms(plain, reps=5, inner=1)
-    k_dev, p_dev = device_ms(kernel, reps=3)[0], device_ms(plain, reps=3)[0]
-    worst = ndiff = 0
-    for idx, valid, crop, ri0, rw, ci0, cw in chunks:
-        cuda_resize.resize_place_window(crop, ri0, rw, ci0, cw, regions[idx])
-        want = cuda_resize.resize_place_window_ref(crop, ri0, rw, ci0, cw)
+    def library():
+        for f in libs:
+            f()
+
+    old = None
+    if parent is not None:
+        calls = [parent_call(parent, "window", crop, 1,
+                             (*rebased, *taps[2:]), other[idx])
+                 for idx, _, crop, _, _, _, taps, rebased in chunks]
+
+        def old():
+            for f in calls:
+                f()
+
+    t = time_four(kernel, plain, old, library, device_reps=3, reps=5,
+                  inner=1)
+    # host time of a launch: 45 enqueues with the card ahead of the host
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        kernel()
+        host.append((time.perf_counter() - t0) / len(chunks) * 1e6)
+        torch.cuda.synchronize()
+    host_us = statistics.median(host)
+    worst = ndiff = nparent = 0
+    for idx, launch, crop, a, s_lo, valid, taps, _ in chunks:
+        launch(crop, a, s_lo, valid)
+        want = cuda_resize.resize_place_window_ref(crop, *taps, a, s_lo,
+                                                   valid)
         d = (regions[idx][:valid].int() - want.int()).abs()
         worst = max(worst, int(d.max()))
         ndiff += int((d > 0).any(dim=2).sum())
+    if old is not None:
+        for (idx, launch, crop, a, s_lo, valid, _, _), f in zip(chunks,
+                                                                calls):
+            launch(crop, a, s_lo, valid)
+            f()
+            nparent += int((other[idx][:valid] != regions[idx][:valid])
+                           .any(dim=2).sum())
     check(worst == 0 and ndiff == 0, f"config 4 windowed kernel vs plain "
           f"max |diff| {worst}, {ndiff} differing pixels (must be exact)")
-    k_ms = statistics.median([kern_a, kern_b])
-    p_ms = statistics.median([plain_a, plain_b])
+    check(nparent == 0, f"config 4: {nparent} pixels unlike the parent body")
+    t["bound_ms"] = bound_ms(nbytes)
+    t["bytes"] = nbytes
+    t["host_us"] = host_us
+    t["worst"] = worst
     crop0 = chunks[0][2]
     say(f"phase15 windowed times over config 4's {len(chunks)} chunks of "
         f"{band_rows} rows (crop {tuple(crop0.shape)} -> region "
         f"{band_rows}x{regions[chunks[0][0]].shape[1]}x3; ms per job, CUDA "
-        f"events median of 5, order plain kernel kernel plain: "
-        f"{plain_a:.4f} {kern_a:.4f} {kern_b:.4f} {plain_b:.4f}) on {smi}: "
-        f"kernel {k_ms:.4f} ({k_dev:.4f} busy) plain {p_ms:.4f} "
-        f"({p_dev:.4f} busy) | max |diff| {worst}, differing px {ndiff}")
-    del chunks, regions
+        f"events median of 5 in two rounds plain kernel parent "
+        f"F.interpolate and back; in brackets the profiler's device busy "
+        f"time) on {smi}: kernel {t['kernel_ms']:.4f} "
+        f"({t['kernel_busy']:.4f}) parent {_fmt(t['parent_ms'])} "
+        f"({_fmt(t['parent_busy'])}) F.interpolate of the 5 whole "
+        f"placements {t['library_ms']:.4f} ({t['library_busy']:.4f}) plain "
+        f"{t['plain_ms']:.4f} ({t['plain_busy']:.4f}) bound "
+        f"{t['bound_ms']:.4f} ({nbytes} bytes) | host time per launch "
+        f"{host_us:.2f} us | max |diff| {worst}, differing px {ndiff}, "
+        f"unlike parent {nparent}")
+    del chunks, regions, other, libs
 
     canvas_bytes = 3 * plan.canvas_w * plan.canvas_h
     for strategy, budget in (
@@ -750,11 +1086,24 @@ def phase15_window_times(dev, smi, plan, opts, items, band_rows=256):
         for name, ms in by_name.items():
             key = next((k for k in groups if k in name), "other")
             groups[key] = groups.get(key, 0.0) + ms
+        counts = counts_ms(job, reps=1)
+        n = {k: sum(v for name, v in counts.items() if k in name)
+             for k in ("Memcpy HtoD", "resize_place", "Memcpy DtoH")}
         say(f"phase15 warm {strategy} config-4 job under torch.profiler on "
             f"{smi}: host wall {wall:.4f} ms, device busy {busy:.4f} ms, "
             f"idle (host) share {1 - busy / wall if wall else float('nan'):.4f}"
             " | device ms " + " ".join(f"{k}={v:.4f}"
-                                       for k, v in groups.items()))
+                                       for k, v in groups.items())
+            + " | device activities per job " + " ".join(
+                f"{k}={v:g}" for k, v in n.items()))
+        if strategy == "banded":
+            # one upload per chunk's crop, the taps once per placement (4
+            # tensors): no per-chunk tap upload
+            n_res = len(resampled(plan))
+            n_chunks = int(n["resize_place"])
+            check(n["Memcpy HtoD"] <= n_chunks + 4 * n_res,
+                  f"banded job: {n['Memcpy HtoD']} uploads for {n_chunks} "
+                  f"chunks of {n_res} placements")
 
     # host parts of the banded job, by host clock: the canvas fill and the
     # blits of the copy placements (rotated sources are strided copies)
@@ -775,7 +1124,7 @@ def phase15_window_times(dev, smi, plan, opts, items, band_rows=256):
         blits.append(f"o{p.orientation}:{time.perf_counter() - t0:.4f}")
     say(f"phase15 banded job's host work by host clock: canvas fill "
         f"{fill_s:.4f} s, copy blits (orientation:s) {' '.join(blits)}")
-    return worst, k_ms, p_ms
+    return t
 
 
 def _multipart(blobs):
@@ -802,7 +1151,7 @@ def phase11_http(dev, smi):
     from PIL import Image
 
     import imagestitching_tpu_torch as itt
-    from imagestitching_tpu.imgio import codec
+    from imagestitching_tpu_torch.imgio import codec
     from imagestitching_tpu_torch import RuntimeConfig, StitchHTTPServer
     from imagestitching_tpu_torch.serve.http import _options_from
 
@@ -868,6 +1217,15 @@ def phase11_http(dev, smi):
 
 
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-source", help="a previous csrc/resize_place.cu "
+                    "(for example `git show HEAD~1:imagestitching_tpu_torch/"
+                    "csrc/resize_place.cu`) to build and time beside the "
+                    "current body in phases 6, 10 and 15")
+    args = ap.parse_args()
+
     # ---- phase 1: environment
     import torch
 
@@ -884,10 +1242,10 @@ def main() -> None:
         from imagestitching_tpu_torch.ops import _build, cuda_resize
     except ImportError as e:
         fail(f"run from the root of a checkout ({e!r})")
-    from imagestitching_tpu.config import CanvasLimits
-    from imagestitching_tpu.core import geometry, oracle
-    from imagestitching_tpu.core.layout import ImageSpec, solve
-    from imagestitching_tpu.imgio import codec
+    from imagestitching_tpu_torch.config import CanvasLimits
+    from imagestitching_tpu_torch.core import geometry, oracle
+    from imagestitching_tpu_torch.core.layout import ImageSpec, solve
+    from imagestitching_tpu_torch.imgio import codec
     from imagestitching_tpu_torch import RuntimeConfig, StitchOptions
     from imagestitching_tpu_torch.config import budget_from_device
     check("jax" not in sys.modules, "the port imported jax")
@@ -902,6 +1260,13 @@ def main() -> None:
     say(f"phase2 build: {' '.join(info.command)} | seconds "
         f"{info.seconds:.3f} cached {info.cached} | ptxas: {regs or 'n/a'} "
         f"| budget_from_device: {budget_from_device().hbm_bytes} bytes")
+    parent = None
+    if args.parent_source:
+        t0 = time.perf_counter()
+        parent = load_parent(args.parent_source)
+        say(f"phase2 parent body: built {args.parent_source} in "
+            f"{time.perf_counter() - t0:.3f} s, timed beside the current "
+            "body in phases 6, 10 and 15")
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -954,6 +1319,23 @@ def main() -> None:
                                     filter=kind), None, 3))
     cases.append(("gray-c1", [(500, 400, 1), (300, 350, 8)],
                   StitchOptions(direction="horizontal", gap=1.5), None, 1))
+    # what the tiled body does differently: regions of 240, 100 and 258 cols
+    # by 151 rows at canvas cols 0, 241 and 343 (tiles cut by the region's
+    # edge, odd c0); a 12x bilinear downscale of a transposed source (a list
+    # of touched lines); lanczos3 at a 16x downscale (K = 97 > 64); a 4x
+    # upscale; one channel, transposed, at 12x
+    cases.append(("edge-odd-c0", [(97, 61, 1), (151, 100, 6), (77, 45, 3)],
+                  StitchOptions(direction="horizontal", mode="max", gap=1.5),
+                  None, 3))
+    cases.append(("bilinear-12x-transposed", [(2400, 1800, 6),
+                                              (150, 200, 1)],
+                  StitchOptions(mode="min"), None, 3))
+    cases.append(("lanczos3-k97", [(2400, 1800, 1), (150, 100, 1)],
+                  StitchOptions(mode="min", filter="lanczos3"), None, 3))
+    cases.append(("upscale-4x", [(40, 50, 8), (200, 160, 1)],
+                  StitchOptions(mode="max", gap=2), None, 3))
+    cases.append(("gray-c1-12x-o5", [(1200, 1800, 5), (100, 80, 1)],
+                  StitchOptions(mode="min"), None, 1))
 
     worst_all, notes = 0, []
     for name, shapes, opts, limits, c in cases:
@@ -963,6 +1345,13 @@ def main() -> None:
         check(len(resampled(plan)) > 0, f"{name}: no resampled placement")
         if name == "bilinear-down-frac":
             check(plan.scale_down < 1.0, f"{name}: limits did not scale down")
+        if name == "edge-odd-c0":
+            check(any(p.col_span[0] % 2 for p in resampled(plan)),
+                  f"{name}: no resampled placement at an odd column")
+        if name == "lanczos3-k97":
+            k = max(taps_on(p, plan.filter, "cpu")[1].shape[1]
+                    for p in resampled(plan))
+            check(k > 64, f"{name}: K = {k}")
         worst, ndiff = kernel_vs_plain(plan, imgs)
         got = cuda_resize.stitch(plan, imgs, dev).cpu().numpy()
         want = oracle.stitch(plan, imgs)
@@ -1025,7 +1414,7 @@ def main() -> None:
         f"{' '.join(phases)}) | oracle max |diff| "
         f"{int(diff.max())} copy spans {copy_max} | {smi}")
 
-    # ---- phase 5: export through the shared codec
+    # ---- phase 5: export through the port's codec
     with tempfile.TemporaryDirectory() as td:
         path, m5 = itt.stitch_to_file(items, os.path.join(td, "out.png"),
                                       options=opts3, config=cfg,
@@ -1036,53 +1425,9 @@ def main() -> None:
     say(f"phase5 export: stitch_to_file(stream=False) -> PNG {size} bytes, "
         f"decoded equal to phase 4 | encode_s {m5.encode_s:.4f}")
 
-    # ---- phase 6: kernel and plain times at config 3's shapes
-    imgs3 = [a for a, _ in items]
-    canvas = torch.zeros((plan3.canvas_h, plan3.canvas_w, 3),
-                         dtype=torch.uint8, device=dev)
-    k_total = p_total = kd_total = pd_total = 0.0
-    rows, worst6, ndiff6 = [], 0, 0
-    for p in resampled(plan3):
-        src = src_on(imgs3[p.index], dev)
-        taps = taps_on(p, plan3.filter, dev)
-        r0, r1 = p.row_span
-        c0, c1 = p.col_span
-
-        def kernel(src=src, taps=taps, p=p, r0=r0, c0=c0):
-            cuda_resize.resize_place(src, p.orientation, *taps, canvas,
-                                     r0, c0)
-
-        def plain(src=src, taps=taps, p=p, r0=r0, r1=r1, c0=c0, c1=c1):
-            canvas[r0:r1, c0:c1] = cuda_resize.resize_place_ref(
-                src, p.orientation, *taps)
-
-        plain_a = median_ms(plain)
-        kern_a = median_ms(kernel)
-        got = canvas[r0:r1, c0:c1].clone()
-        plain()
-        d = (got.int() - canvas[r0:r1, c0:c1].int()).abs()
-        worst6 = max(worst6, int(d.max()))
-        ndiff6 += int((d > 0).any(dim=2).sum())
-        kern_b = median_ms(kernel)
-        plain_b = median_ms(plain)
-        k_ms = statistics.median([kern_a, kern_b])
-        p_ms = statistics.median([plain_a, plain_b])
-        k_dev, p_dev = device_ms(kernel)[0], device_ms(plain)[0]
-        k_total += k_ms
-        p_total += p_ms
-        kd_total += k_dev
-        pd_total += p_dev
-        rows.append(f"#{p.index} o{p.orientation} {p.raw_w}x{p.raw_h}->"
-                    f"{c1 - c0}x{r1 - r0} kernel {k_ms:.4f} ({k_dev:.4f}) "
-                    f"plain {p_ms:.4f} ({p_dev:.4f})")
-    check(worst6 == 0 and ndiff6 == 0, f"config 3 kernel vs plain max "
-          f"|diff| {worst6}, {ndiff6} differing pixels (must be exact)")
-    say(f"phase6 times (ms; CUDA events, median of 20x10 launches, order "
-        f"plain kernel kernel plain; in brackets the profiler's device "
-        f"busy time) on {smi}: " + " | ".join(rows)
-        + f" | total kernel {k_total:.4f} ({kd_total:.4f}) plain "
-        f"{p_total:.4f} ({pd_total:.4f}) | kernel vs plain max |diff| "
-        f"{worst6}, differing px {ndiff6}")
+    # ---- phase 6: kernel, parent-body, library and plain times at
+    # config 3's shapes
+    t6 = phase6_times(dev, smi, plan3, [a for a, _ in items], parent)
 
     # ---- phase 7: where a warm config-3 job's time goes on the device
     def job():
@@ -1101,8 +1446,7 @@ def main() -> None:
     # ---- phases 8-11: batched serving (kernel #2, StitchServer, HTTP)
     worst8 = phase8_batch_vs_plain(cases, dev)
     plan5, stacks5, launches5 = phase9_config5(dev, smi, budget_from_device())
-    worst10, kb_total, pb_total = phase10_batch_times(dev, smi, plan5,
-                                                      stacks5)
+    t10 = phase10_batch_times(dev, smi, plan5, stacks5, parent)
     del stacks5
     phase11_http(dev, smi)
 
@@ -1111,22 +1455,28 @@ def main() -> None:
     plan4, opts4, _, items4, ref4, launches_w = phase13_config4(dev, smi)
     phase14_ladder(dev, smi, plan4, opts4, items4, ref4)
     del ref4
-    worst15, kw_total, pw_total = phase15_window_times(dev, smi, plan4, opts4,
-                                                       items4)
+    t15 = phase15_window_times(dev, smi, plan4, opts4, items4, parent)
 
-    record = {"kernels": [{
-        "name": "resize_place", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches_main,
-        "max_abs_err": max(worst_all, worst6),
-        "ms": round(k_total, 6), "plain_ms": round(p_total, 6)}, {
-        "name": "resize_place_batch", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": REPLACES_BATCH,
-        "launches": launches5, "max_abs_err": max(worst8, worst10),
-        "ms": round(kb_total, 6), "plain_ms": round(pb_total, 6)}, {
-        "name": "resize_place_window", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": REPLACES_WINDOW,
-        "launches": launches_w, "max_abs_err": max(worst12, worst15),
-        "ms": round(kw_total, 6), "plain_ms": round(pw_total, 6)}]}
+    def entry(name, replaces, launches, worst, t):
+        def r(v):
+            return None if v is None else round(v, 6)
+
+        return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": worst, "ms": r(t["kernel_ms"]),
+                "plain_ms": r(t["plain_ms"]), "bound_ms": r(t["bound_ms"]),
+                "bound_by": "bytes", "library_ms": r(t["library_ms"]),
+                "lib_ms": r(t["library_ms"]), "busy_ms": r(t["kernel_busy"]),
+                "parent_ms": r(t["parent_ms"]),
+                "parent_busy_ms": r(t["parent_busy"])}
+
+    record = {"kernels": [
+        entry("resize_place", REPLACES, launches_main,
+              max(worst_all, t6["worst"]), t6),
+        entry("resize_place_batch", REPLACES_BATCH, launches5,
+              max(worst8, t10["worst"]), t10),
+        entry("resize_place_window", REPLACES_WINDOW, launches_w,
+              max(worst12, t15["worst"]), t15)]}
     say(json.dumps(record))
     say(f"gpu: {smi}")
     say(json.dumps({"ok": True, "device": {

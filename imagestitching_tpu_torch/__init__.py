@@ -1,11 +1,14 @@
 """imagestitching_tpu_torch -- the stitcher on PyTorch and CUDA (Hopper).
 
 The port of :mod:`imagestitching_tpu` (JAX on a TPU), which stays beside it
-as the reference.  The host layers that never touch a device -- the layout
-solver and its f64 taps, the NumPy oracle, the codec, the decode pool and
-the memory tiler -- are the JAX package's own, shared by import, because
-they are the parity contract.  Everything that touched JAX is ported: the
-resize-and-place kernel, single-job and batched, is hand-written CUDA C++
+as the reference.  The port imports nothing of it.  The host layers that
+never touch a device -- the layout solver and its f64 taps (``core/``), the
+NumPy oracle, the codec (``imgio/``), the decode pool, the caches, the
+logger and the memory tiler (``runtime/``) -- are the port's own copies,
+equal to the originals in what they compute; ``tests/test_torch_standalone.py``
+holds each one equal to its original, because they are the parity contract.
+Everything that touched JAX is ported: the resize-and-place kernel,
+single-job, batched and windowed, is hand-written CUDA C++
 (``csrc/resize_place.cu``), built with ``nvcc`` at first use.  Batched
 serving is ``StitchServer`` and its HTTP front end ``StitchHTTPServer``.
 

@@ -1,24 +1,138 @@
-"""Runtime configuration of the PyTorch port.
+"""Configuration of the PyTorch port.
 
-Port of ``imagestitching_tpu/config.py:159-203`` (``RuntimeConfig``) and of
-``MemoryBudget.from_device`` (:74-103).  The user-facing options and the
-limits are shared with the JAX package by import: ``StitchOptions``,
-``CanvasLimits`` and ``MemoryBudget`` are the layout contract.
+The user-facing options and the limits -- ``StitchOptions``,
+``CanvasLimits``, ``MemoryBudget``, ``DIRECTIONS``, ``MODES`` and
+``SUPPORTED_TYPES`` -- are the port's own copies of
+``imagestitching_tpu/config.py:15-156``, equal to them field for field
+(``tests/test_torch_standalone.py``); they are part of the layout contract.
+``MemoryBudget.from_device`` probed the TPU and is left behind: the port's
+twin is :func:`budget_from_device`.
 
-The port's ``RuntimeConfig`` carries only what the port implements.  The
-JAX package's ``interpret``, ``profile``, ``overlap`` and ``mesh`` arrive
-with the slices that implement them.
+``RuntimeConfig`` is the port's own (twin of :159-203) and carries only
+what the port implements.  The JAX package's ``interpret``, ``profile``,
+``overlap`` and ``mesh`` arrive with the slices that implement them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
-from imagestitching_tpu.config import CanvasLimits, MemoryBudget, StitchOptions
+__all__ = ["CanvasLimits", "DIRECTIONS", "ENGINES", "MODES", "MemoryBudget",
+           "RuntimeConfig", "SUPPORTED_TYPES", "StitchOptions",
+           "budget_from_device"]
 
-__all__ = ["CanvasLimits", "ENGINES", "MemoryBudget", "RuntimeConfig",
-           "StitchOptions", "budget_from_device"]
+# Directions and modes mirror the reference's user-facing settings
+# (index.js:17-20, the settings modal index.js:791-885).
+DIRECTIONS = ("vertical", "horizontal")
+MODES = ("min", "max", "original")
+
+# Supported input formats (reference whitelist at index.js:4; HEIC/HEIF are
+# handled by a transcode fallback, canvas.js:255-267).
+SUPPORTED_TYPES = ("jpg", "jpeg", "png", "webp", "bmp", "gif")
+
+
+@dataclasses.dataclass(frozen=True)
+class CanvasLimits:
+    """Output-canvas size governor.
+
+    TPU-native analog of the reference's device canvas caps
+    (``index.js:1323-1357``): a max side length, a max total pixel count and a
+    supersampling ceiling.  On TPU these bound HBM usage of the output buffer
+    rather than a GPU texture limit; they are configurable rather than probed.
+    """
+
+    max_side: int = 65536
+    max_pixels: int = 1 << 30          # ~1 Gpx default; effectively "unlimited"
+    max_supersample: float = 2.2       # reference: 2.2 iOS / 2.6 android (index.js:1363)
+
+    @staticmethod
+    def reference_ios() -> "CanvasLimits":
+        # index.js:1325-1329 — side 12288, pixel cap 16384*1400
+        return CanvasLimits(max_side=12288, max_pixels=16384 * 1400,
+                            max_supersample=2.2)
+
+    @staticmethod
+    def reference_android(max_side: int = 4096) -> "CanvasLimits":
+        # index.js:1325,1330-1332 — side 4096, pixel cap side*min(side,8192)
+        return CanvasLimits(max_side=max_side,
+                            max_pixels=max_side * min(max_side, 8192),
+                            max_supersample=2.6)
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryBudget:
+    """HBM budget governor (replaces reference pixel caps + big-task mode).
+
+    ``hbm_bytes`` bounds the device working set of one stitch job: output
+    canvas + staged source(s) + intermediates.  The tiler
+    (:mod:`imagestitching_tpu_torch.runtime.tiler`) picks a streaming/banding plan so
+    peak HBM stays under this bound — the TPU answer to the reference's
+    ``scaleDown`` clamping (index.js:1323-1357) and big-task serial flushes
+    (index.js:1560-1571): never shrink the user's output, just tile it.
+    """
+
+    hbm_bytes: int = 2 * (1 << 30)     # BASELINE config 4: 2 GB
+    host_cache_pixels: int = 64 * 1_000_000  # bitmap-cache analog (index.js:6-7)
+    host_cache_entries: int = 6              # (index.js:8-9)
+    # Disk prepared-artifact store (the saveFile + storage-quota governor
+    # analog, index.js:629-676): decode results persisted across processes,
+    # LRU-evicted to this byte quota.  None disables persistence.
+    artifact_dir: Optional[str] = None
+    artifact_quota_bytes: int = 512 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class StitchOptions:
+    """User-facing stitch parameters (reference: direction/mode/gap,
+    index.js:17-20,824-832; gap clamped to [0, 20] at index.js:824-832)."""
+
+    direction: str = "vertical"
+    mode: str = "min"
+    gap: float = 0.0
+    # The reference supersamples by default for phone-display sharpness
+    # (index.js:1360-1386); as a framework default that 2.2x output-size
+    # surprise is wrong, so it is opt-in here (parity mode: pass True).
+    supersample: bool = False
+    background: Tuple[int, int, int] = (255, 255, 255)  # white fill (index.js:1423-1424)
+    filter: str = "bilinear"           # "bilinear" | "triangle" | "box" | "lanczos3"
+    max_images: Optional[int] = 9      # MAX_IMAGES (index.js:311); None = unlimited
+    # Auto-overlap merge (framework extension — the reference concatenates
+    # verbatim and users hand-trim overlapping screenshots): detect the
+    # duplicated strip between consecutive images along the stitch axis and
+    # trim it before layout (ops/overlap.py).  merge_threshold is the max
+    # mean-abs-diff (uint8 levels) for an overlap to count as a duplicate
+    # (2.0 tolerates JPEG recompression; 0.0 = exact only).
+    merge_overlap: bool = False
+    merge_threshold: float = 2.0
+
+    def validate(self) -> "StitchOptions":
+        if self.direction not in DIRECTIONS:
+            raise ValueError(f"direction must be one of {DIRECTIONS}, got {self.direction!r}")
+        if self.mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
+        if self.gap < 0:
+            raise ValueError(f"gap must be >= 0, got {self.gap}")
+        if self.filter not in ("bilinear", "triangle", "box", "lanczos3"):
+            raise ValueError(f"unknown filter {self.filter!r}")
+        if self.merge_threshold < 0:
+            raise ValueError(f"merge_threshold must be >= 0, "
+                             f"got {self.merge_threshold}")
+        # Normalize background to a hashable (int, int, int): it flows into
+        # plan.signature(), which every compiled-program cache hashes — a
+        # list/ndarray background must not blow up there (and must compare
+        # equal to its tuple twin so equal jobs share one compile).
+        try:
+            bg = tuple(int(v) for v in self.background)
+        except (TypeError, ValueError):
+            raise ValueError(f"background must be an RGB triple, "
+                             f"got {self.background!r}")
+        if len(bg) != 3 or any(not (0 <= v <= 255) for v in bg):
+            raise ValueError(f"background must be three ints in [0, 255], "
+                             f"got {self.background!r}")
+        if bg != self.background:
+            return dataclasses.replace(self, background=bg)
+        return self
 
 #: ``auto`` -- the resize-and-place engine: the CUDA kernel on a CUDA
 #: device, its plain PyTorch version on the CPU; ``cuda`` -- the same, but

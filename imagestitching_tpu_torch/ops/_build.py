@@ -122,7 +122,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.resize_place_batch_launch.restype = i32
     lib.resize_place_window_launch.argtypes = [
         p, i64, i64, i32,                    # crop, crop rows, width, C
-        p, p, i32, i32,                      # ri0, rw, n_rows, k_rows
+        p, p, i32, i32, i32,                 # ri0, rw, shift, rows, K
         p, p, i32, i32,                      # ci0, cw, n_cols, k_cols
         p, i64,                              # region, region rows
         p]                                   # stream

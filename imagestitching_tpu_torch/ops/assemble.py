@@ -14,7 +14,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from imagestitching_tpu.core.layout import LayoutPlan, Placement
+from ..core.layout import LayoutPlan, Placement
 
 
 def job_channels(plan: LayoutPlan, images: Sequence[np.ndarray]) -> int:

@@ -16,6 +16,10 @@ launched by ``resize_place_one`` (#1), ``resize_place_batch`` (#2) and
   the kernels' wrappers.  For tensors on the CPU they run the plain version,
   :func:`resize_place_ref`; for CUDA tensors they launch the kernel or raise.
   There is no fallback between the two.
+* :class:`WindowLauncher` is kernel #3 for the many chunks of one placement:
+  it checks once what the chunks share (the placement's taps, the region
+  buffer, the crop shape), binds the entry and the stream, and per chunk
+  passes only the crop, the chunk's first tap row and the crop's start.
 * ``launches``, ``batch_launches`` and ``window_launches`` count kernel
   launches, so a run can show that its main path went through the kernels.
 * :func:`draw_placement` is the one placement step: identity placements are
@@ -38,9 +42,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from imagestitching_tpu.core import geometry
-from imagestitching_tpu.core.layout import LayoutPlan, Placement
-
+from ..core import geometry
+from ..core.layout import LayoutPlan, Placement
 from . import torch_compose
 from .assemble import job_channels, new_canvas, source_tensor
 
@@ -81,10 +84,32 @@ resize_place_batch_ref = resize_place_ref
 
 def resize_place_window_ref(crop: torch.Tensor, ri0: torch.Tensor,
                             rw: torch.Tensor, ci0: torch.Tensor,
-                            cw: torch.Tensor) -> torch.Tensor:
+                            cw: torch.Tensor, row_start: int = 0,
+                            row_shift: int = 0,
+                            n_rows: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the windowed kernel: the uint8 ``(n_rows,
-    n_cols, C)`` chunk region of an oriented HWC crop."""
-    return torch_compose.resample(crop, 1, ri0, rw, ci0, cw)
+    n_cols, C)`` chunk region of an oriented HWC crop, from rows
+    ``[row_start, row_start + n_rows)`` of the row taps with ``row_shift``
+    subtracted from their starts."""
+    if n_rows is None:
+        n_rows = ri0.shape[0] - row_start
+    rows = slice(row_start, row_start + n_rows)
+    return resize_place_ref(crop, 1, ri0[rows] - row_shift, rw[rows], ci0,
+                            cw)
+
+
+def _check_taps(ri0: torch.Tensor, rw: torch.Tensor, ci0: torch.Tensor,
+                cw: torch.Tensor, device: torch.device) -> None:
+    for name, t, dt, nd in (("ri0", ri0, torch.int32, 1),
+                            ("rw", rw, torch.float32, 2),
+                            ("ci0", ci0, torch.int32, 1),
+                            ("cw", cw, torch.float32, 2)):
+        if t.dtype != dt or t.ndim != nd or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {nd}-d {dt}")
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, src on {device}")
+    if rw.shape[0] != ri0.shape[0] or cw.shape[0] != ci0.shape[0]:
+        raise ValueError("tap starts and weights differ in length")
 
 
 def _check(batched: bool, src: torch.Tensor, ri0: torch.Tensor,
@@ -104,18 +129,9 @@ def _check(batched: bool, src: torch.Tensor, ri0: torch.Tensor,
                          f"{canvas.shape[-1]} (1 or 3, equal)")
     if not (src.is_contiguous() and canvas.is_contiguous()):
         raise ValueError("src and canvas must be contiguous")
-    for name, t, dt, nd in (("ri0", ri0, torch.int32, 1),
-                            ("rw", rw, torch.float32, 2),
-                            ("ci0", ci0, torch.int32, 1),
-                            ("cw", cw, torch.float32, 2)):
-        if t.dtype != dt or t.ndim != nd or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {nd}-d {dt}")
-        if t.device != src.device:
-            raise ValueError(f"{name} on {t.device}, src on {src.device}")
+    _check_taps(ri0, rw, ci0, cw, src.device)
     if canvas.device != src.device:
         raise ValueError(f"canvas on {canvas.device}, src on {src.device}")
-    if rw.shape[0] != ri0.shape[0] or cw.shape[0] != ci0.shape[0]:
-        raise ValueError("tap starts and weights differ in length")
     n_rows, n_cols = ri0.shape[0], ci0.shape[0]
     canvas_h, canvas_w = canvas.shape[-3], canvas.shape[-2]
     if r0 < 0 or c0 < 0 or r0 + n_rows > canvas_h or c0 + n_cols > canvas_w:
@@ -126,8 +142,8 @@ def _check(batched: bool, src: torch.Tensor, ri0: torch.Tensor,
 def _place(entry: str, src: torch.Tensor, orientation: int,
            ri0: torch.Tensor, rw: torch.Tensor, ci0: torch.Tensor,
            cw: torch.Tensor, canvas: torch.Tensor, r0: int, c0: int) -> bool:
-    """The body of the three wrappers (``entry`` is ``one``, ``batch`` or
-    ``window``); True when it launched a kernel."""
+    """The body of kernels #1 and #2 (``entry`` is ``one`` or ``batch``);
+    True when it launched a kernel."""
     _check(entry == "batch", src, ri0, rw, ci0, cw, canvas, r0, c0)
     if orientation not in range(9):
         raise ValueError(f"invalid EXIF orientation {orientation}")
@@ -148,23 +164,25 @@ def _place(entry: str, src: torch.Tensor, orientation: int,
     taps = (ptr(ri0.data_ptr()), ptr(rw.data_ptr()), n_rows, rw.shape[1],
             ptr(ci0.data_ptr()), ptr(cw.data_ptr()), n_cols, cw.shape[1])
     canvas_hw = (canvas.shape[-3], canvas.shape[-2], r0, c0)
-    # the launch goes to the current device; the context restores the
-    # caller's device afterwards
-    with torch.cuda.device(src.device):
+
+    def start():
         stream = ptr(torch.cuda.current_stream().cuda_stream)
         if entry == "batch":
-            err = lib.resize_place_batch_launch(
+            return lib.resize_place_batch_launch(
                 ptr(src.data_ptr()), src.shape[0], src.stride(0), h, w, c,
                 orientation, *taps, ptr(canvas.data_ptr()), canvas.stride(0),
                 *canvas_hw, stream)
-        elif entry == "window":
-            err = lib.resize_place_window_launch(
-                ptr(src.data_ptr()), h, w, c, *taps, ptr(canvas.data_ptr()),
-                canvas.shape[0], stream)
-        else:
-            err = lib.resize_place_launch(
-                ptr(src.data_ptr()), h, w, c, orientation, *taps,
-                ptr(canvas.data_ptr()), *canvas_hw, stream)
+        return lib.resize_place_launch(
+            ptr(src.data_ptr()), h, w, c, orientation, *taps,
+            ptr(canvas.data_ptr()), *canvas_hw, stream)
+
+    # the launch goes to the current device: make it the tensors' for the
+    # call where it is not
+    if torch.cuda.current_device() == src.device.index:
+        err = start()
+    else:
+        with torch.cuda.device(src.device):
+            err = start()
     if err != 0:
         raise RuntimeError("resize_place kernel launch failed: "
                            + lib.resize_place_error_string(err).decode())
@@ -195,20 +213,112 @@ def resize_place_batch(src_bhwc: torch.Tensor, orientation: int,
         batch_launches += 1
 
 
+class WindowLauncher:
+    """Kernel #3 for the row chunks of one placement.
+
+    ``(ri0, rw)`` are the placement's row taps and ``(ci0, cw)`` its column
+    taps, ``region`` the ``(rows, n_cols, C)`` uint8 region buffer and
+    ``crop_shape`` the ``(crop_rows, width, C)`` of every chunk's crop.
+    What the chunks share is checked here, once, and on a CUDA device the
+    library entry, the pointers and the stream current now are bound; a
+    call checks only the crop and the chunk's rows, then launches."""
+
+    def __init__(self, ri0: torch.Tensor, rw: torch.Tensor,
+                 ci0: torch.Tensor, cw: torch.Tensor, region: torch.Tensor,
+                 crop_shape: Sequence[int]):
+        if region.dtype != torch.uint8 or region.ndim != 3 \
+                or not region.is_contiguous():
+            raise ValueError("region must be a contiguous uint8 (rows, "
+                             "n_cols, C) tensor")
+        if region.shape[1] != ci0.shape[0]:
+            raise ValueError(f"region {tuple(region.shape)} must be (rows, "
+                             f"{ci0.shape[0]}, C)")
+        if region.shape[2] not in (1, 3):
+            raise ValueError(f"channels: {region.shape[2]} (1 or 3)")
+        self.crop_shape = tuple(int(s) for s in crop_shape)
+        if len(self.crop_shape) != 3 or self.crop_shape[2] != region.shape[2] \
+                or min(self.crop_shape) < 1:
+            raise ValueError(f"crop shape {self.crop_shape} must be (rows, "
+                             f"width, {region.shape[2]})")
+        device = region.device
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"resize_place runs on cpu or cuda, not {device}")
+        _check_taps(ri0, rw, ci0, cw, device)
+        self.taps, self.region = (ri0, rw, ci0, cw), region
+        self.device = device
+        self._fn = None
+        if device.type == "cuda":
+            from . import _build
+
+            lib = _build.load()
+            ptr = ctypes.c_void_p
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream().cuda_stream
+            self._fn, self._error = (lib.resize_place_window_launch,
+                                     lib.resize_place_error_string)
+            self._ri0, self._rw = ri0.data_ptr(), rw.data_ptr()
+            self._k = rw.shape[1]
+            self._cols = (ptr(ci0.data_ptr()), ptr(cw.data_ptr()),
+                          ci0.shape[0], cw.shape[1], ptr(region.data_ptr()),
+                          region.shape[0], ptr(stream))
+
+    def __call__(self, crop: torch.Tensor, row_start: int = 0,
+                 row_shift: int = 0, n_rows: Optional[int] = None) -> None:
+        """Resample rows ``[row_start, row_start + n_rows)`` of the
+        placement (default: to the last) from ``crop``, whose first row is
+        row ``row_shift`` of the oriented source, into
+        ``region[:n_rows]``, in place."""
+        global window_launches
+        ri0 = self.taps[0]
+        if n_rows is None:
+            n_rows = ri0.shape[0] - row_start
+        if tuple(crop.shape) != self.crop_shape or crop.dtype != torch.uint8 \
+                or crop.device != self.device or not crop.is_contiguous():
+            raise ValueError(f"crop {tuple(crop.shape)} {crop.dtype} on "
+                             f"{crop.device} must be a contiguous uint8 "
+                             f"{self.crop_shape} on {self.device}")
+        if row_start < 0 or n_rows < 0 or row_start + n_rows > ri0.shape[0] \
+                or n_rows > self.region.shape[0]:
+            raise ValueError(f"rows [{row_start}, {row_start + n_rows}) of "
+                             f"{ri0.shape[0]} into a region of "
+                             f"{self.region.shape[0]}")
+        if n_rows == 0:
+            return
+        if self._fn is None:
+            self.region[:n_rows] = resize_place_window_ref(
+                crop, *self.taps, row_start, row_shift, n_rows)
+            return
+        args = (ctypes.c_void_p(crop.data_ptr()), *self.crop_shape,
+                ctypes.c_void_p(self._ri0 + 4 * row_start),
+                ctypes.c_void_p(self._rw + 4 * row_start * self._k),
+                row_shift, n_rows, self._k, *self._cols)
+        if torch.cuda.current_device() == self.device.index:
+            err = self._fn(*args)
+        else:       # the launch goes to the current device
+            with torch.cuda.device(self.device):
+                err = self._fn(*args)
+        if err != 0:
+            raise RuntimeError("resize_place kernel launch failed: "
+                               + self._error(err).decode())
+        window_launches += 1
+
+
 def resize_place_window(crop: torch.Tensor, ri0: torch.Tensor,
                         rw: torch.Tensor, ci0: torch.Tensor, cw: torch.Tensor,
-                        region: torch.Tensor) -> None:
+                        region: torch.Tensor, row_start: int = 0,
+                        row_shift: int = 0,
+                        n_rows: Optional[int] = None) -> None:
     """Resample one row chunk of a placement: ``crop`` is the oriented HWC
-    uint8 source row window, ``(ri0, rw)`` the chunk's row taps rebased to
-    it, ``(ci0, cw)`` the placement's column taps.  The uint8 result goes to
-    ``region[:n_rows]`` of the ``(rows, n_cols, C)`` region buffer, in
-    place."""
-    global window_launches
-    if region.ndim != 3 or region.shape[1] != ci0.shape[0]:
-        raise ValueError(f"region {tuple(region.shape)} must be (rows, "
-                         f"{ci0.shape[0]}, C)")
-    if _place("window", crop, 1, ri0, rw, ci0, cw, region, 0, 0):
-        window_launches += 1
+    uint8 source row window, whose first row is row ``row_shift`` of the
+    oriented source; ``(ri0, rw)`` the row taps, of which rows
+    ``[row_start, row_start + n_rows)`` are the chunk's (default: all from
+    ``row_start``); ``(ci0, cw)`` the placement's column taps.  The uint8
+    result goes to ``region[:n_rows]`` of the ``(rows, n_cols, C)`` region
+    buffer, in place.  One chunk of :class:`WindowLauncher`."""
+    if crop.ndim != 3:
+        raise ValueError(f"crop {tuple(crop.shape)} must be HWC")
+    WindowLauncher(ri0, rw, ci0, cw, region, crop.shape)(
+        crop, row_start, row_shift, n_rows)
 
 
 # ---------------------------------------------------------------------------

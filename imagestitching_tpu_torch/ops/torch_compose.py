@@ -22,8 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from imagestitching_tpu.core import geometry
-from imagestitching_tpu.core.layout import Placement
+from ..core import geometry
+from ..core.layout import Placement
 
 
 def orient(img: torch.Tensor, orientation: int) -> torch.Tensor:

@@ -4,7 +4,10 @@ Port of ``imagestitching_tpu/ops/pallas_resize.py:727-875`` (``_WindowPlan``).
 The banded strategy resamples a placement's dest rows in chunks of
 ``chunk_rows``, each from a host-cropped window of the oriented source with
 row taps rebased to the window, so the device holds one crop and one chunk
-region at a time, never the canvas.
+region at a time, never the canvas.  Kernel #3 takes the placement's row
+taps once and rebases them itself: a chunk passes its window's first row
+``a`` and its crop start ``s_lo`` (:meth:`WindowPlan.chunk_window`), which
+gives the taps :meth:`WindowPlan.chunk_taps` returns.
 
 What is kept: the r0-aligned windows (:772-777), the data-driven crop height
 (:790-796), the crop start pinned to the image bottom (:840-849) and the
@@ -28,9 +31,8 @@ from typing import List, Tuple
 
 import numpy as np
 
-from imagestitching_tpu.core import geometry
-from imagestitching_tpu.core.layout import Placement
-
+from ..core import geometry
+from ..core.layout import Placement
 from . import torch_compose
 
 

@@ -24,8 +24,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from imagestitching_tpu.core.layout import LayoutPlan
-
+from ..core.layout import LayoutPlan
 from ..ops import cuda_resize
 from ..runtime.pipeline import resolve_device
 

@@ -9,7 +9,7 @@ classifier ``_is_oom`` (:773-787), the demotion ladder (``_banded_bands``
 with the single-device ladder of ``_run_body`` (:1009-1055), and the
 device-free host-blit path ``_host_blit`` (:917-939).
 
-The shared ``tiler.plan_execution`` picks the first rung from the memory
+The tiler's ``plan_execution`` picks the first rung from the memory
 budget: ``resident`` (every source and the canvas on the device), then
 ``streamed`` (the canvas and one or two sources), then ``banded`` (the canvas
 on the host, the device holding one source window and one region at a
@@ -29,16 +29,15 @@ from typing import (Callable, List, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
-from imagestitching_tpu.core import geometry, oracle
-from imagestitching_tpu.core.layout import LayoutPlan
-from imagestitching_tpu.runtime import tiler
-from imagestitching_tpu.runtime.logger import get_logger
-
 from ..config import RuntimeConfig
+from ..core import geometry, oracle
+from ..core.layout import LayoutPlan
 from ..ops import cuda_resize, torch_compose
 from ..ops.assemble import job_channels, new_canvas, source_array, \
     source_tensor
 from ..ops.window import WindowPlan
+from . import tiler
+from .logger import get_logger
 
 ProgressFn = Callable[[str, float], None]
 #: What a rung returns: the canvas and the bytes it uploaded.
@@ -168,8 +167,10 @@ def _run_banded_kernel(plan: LayoutPlan, oriented: Sequence[np.ndarray],
     chunks of ``band_rows`` dest rows (:class:`WindowPlan`): the chunk's
     source window is uploaded, the kernel resamples it into one region
     buffer, and the valid rows are read back into the host canvas.  The
-    device holds one window, one region and the taps.  Returns ``(canvas,
-    bytes uploaded)``."""
+    placement's taps are uploaded once; a chunk passes its first tap row
+    and its crop's start (``cuda_resize.WindowLauncher``).  The device
+    holds one window, one region and the taps.  Returns ``(canvas, bytes
+    uploaded)``."""
     work = []
     for img, p in zip(oriented, plan.placements):
         if p.row_span[1] <= p.row_span[0] or p.col_span[1] <= p.col_span[0]:
@@ -189,15 +190,16 @@ def _run_banded_kernel(plan: LayoutPlan, oriented: Sequence[np.ndarray],
             done += 1
             progress("composite", 0.30 + 0.60 * done / total)
             continue
-        ci0, cw = (torch.from_numpy(a).to(device) for a in (w.ci0, w.cw))
+        taps = [torch.from_numpy(a).to(device)
+                for a in (w.ri0, w.rw, w.ci0, w.cw)]
         region = torch.empty((w.chunk, w.n_cols, channels), dtype=torch.uint8,
                              device=device)
+        launch = cuda_resize.WindowLauncher(
+            *taps, region, (w.crop_rows, w.disp_w, channels))
         for g in range(w.n_chunks):
-            a, valid, _ = w.chunk_window(g)
+            a, valid, s_lo = w.chunk_window(g)
             crop = torch.from_numpy(w.stage_crop(img, g)).to(device)
-            ri0, rw = (torch.from_numpy(t).to(device)
-                       for t in w.chunk_taps(g))
-            cuda_resize.resize_place_window(crop, ri0, rw, ci0, cw, region)
+            launch(crop, a, s_lo, valid)
             # .cpu() waits for the kernel, so the next chunk may reuse the
             # region buffer (a non-blocking readback would need two)
             out[r0 + a:r0 + a + valid, c0:c1] = region[:valid].cpu().numpy()

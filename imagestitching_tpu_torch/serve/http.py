@@ -17,7 +17,7 @@ dynamic batcher of :class:`.server.StitchServer`; requests that arrive within
 * ``GET /healthz``  -- liveness, the torch device and the card's name.
 * ``GET /stats``    -- batcher counters plus the logger ring tail.
 
-Decode runs on the HTTP worker threads (the shared native codec releases
+Decode runs on the HTTP worker threads (the native codec releases
 the GIL); the server's worker thread owns the device.
 
     python -m imagestitching_tpu_torch.serve.http --port 8080
@@ -37,10 +37,9 @@ from urllib.parse import parse_qs, urlparse
 
 import torch
 
-from imagestitching_tpu.imgio import codec, native
-from imagestitching_tpu.runtime.logger import get_logger
-
 from ..config import RuntimeConfig, StitchOptions
+from ..imgio import codec, native
+from ..runtime.logger import get_logger
 from .server import ServerOverloaded, StitchServer
 
 

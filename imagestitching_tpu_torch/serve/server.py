@@ -33,13 +33,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from imagestitching_tpu import api as _api
-from imagestitching_tpu.core.layout import ImageSpec, LayoutPlan, solve
-from imagestitching_tpu.runtime import tiler
-from imagestitching_tpu.runtime.logger import get_logger
-
+from .. import api as _api
 from ..config import CanvasLimits, RuntimeConfig, StitchOptions
+from ..core.layout import ImageSpec, LayoutPlan, solve
 from ..parallel.batch import ENGINES, BatchedStitch
+from ..runtime import tiler
+from ..runtime.logger import get_logger
 from ..runtime.pipeline import resolve_device
 
 
@@ -405,8 +404,8 @@ class StitchServer:
 
     def _batch_cap(self, plan: LayoutPlan, channels: int) -> int:
         """Most jobs per flush under ``config.budget``: bounds the batch's
-        estimated device peak (the shared ``tiler.resident_peak_bytes`` per
-        job) before launch instead of relying on an OOM.  Shared by
+        estimated device peak (``tiler.resident_peak_bytes`` per job)
+        before launch instead of relying on an OOM.  Shared by
         :meth:`_flush_started` and :meth:`warmup` (the JAX server's
         ``_effective_cap`` also rounded it to a mesh multiple)."""
         per_job = max(1, tiler.resident_peak_bytes(plan, channels))

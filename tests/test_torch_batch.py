@@ -4,7 +4,8 @@ against the JAX package's ``parallel.batch.stitch_batch`` (the Pallas kernel
 in interpret mode, and the XLA engine) and the float64 oracle.
 
 Every job of a batch gets its own numpy data (``default_rng``), fed to both
-packages.  Tolerance: 1 uint8 step against the JAX engines and the oracle
+packages, each on its own plan of the job (the port's layout types and the
+JAX package's, solved from the same specs).  Tolerance: 1 uint8 step against the JAX engines and the oracle
 (f32 gathers against the JAX kernel's matmul order and the oracle's f64);
 identity-copy slots are exact; a batch of one equals the single-job path bit
 for bit, because both run the same placement loop and arithmetic.
@@ -14,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from imagestitching_tpu.core import geometry, oracle
-from imagestitching_tpu.core.layout import ImageSpec, solve
+from imagestitching_tpu import config as jax_config
+from imagestitching_tpu.core import layout as jax_layout
+from imagestitching_tpu.core import oracle
 from imagestitching_tpu.parallel import batch as jax_batch
 from imagestitching_tpu_torch import StitchOptions
+from imagestitching_tpu_torch.core import geometry
+from imagestitching_tpu_torch.core.layout import ImageSpec, solve
 from imagestitching_tpu_torch.ops import cuda_resize
 from imagestitching_tpu_torch.parallel import batch
 
@@ -34,6 +38,13 @@ _CASES = {
     "empty-span": ([(33, 4, 1), (4, 4, 1)], dict(mode="min"), 3),
 }
 _B = 3
+
+
+def _jax_plan(shapes, **kw):
+    """The JAX package's plan of the same job, from its own types."""
+    return jax_layout.solve(
+        [jax_layout.ImageSpec(w, h, o) for w, h, o in shapes],
+        jax_config.StitchOptions(supersample=False, **kw))
 
 
 def _case(name, b=_B):
@@ -59,17 +70,19 @@ def _oracle(plan, stacks):
 @pytest.mark.parametrize("name", sorted(_CASES))
 def test_batched_matches_jax_engines_and_oracle(name):
     plan, stacks = _case(name)
+    shapes, kw, _ = _CASES[name]
+    jplan = _jax_plan(shapes, **kw)
     got = batch.stitch_batch(plan, stacks, device="cpu")
     c = stacks[0].shape[3]
     assert got.shape == (_B, plan.canvas_h, plan.canvas_w, c)
     assert got.dtype == np.uint8
-    want = _oracle(plan, stacks)
+    want = _oracle(jplan, stacks)
     assert _maxdiff(got, want) <= 1
     # the jobs really differ: no job's canvas leaked into another's
     assert not np.array_equal(got[0], got[1])
-    for engine, kw in (("pallas", dict(interpret=True)), ("xla", {})):
-        ref = np.asarray(jax_batch.stitch_batch(plan, stacks, engine=engine,
-                                                **kw))
+    for engine, ekw in (("pallas", dict(interpret=True)), ("xla", {})):
+        ref = np.asarray(jax_batch.stitch_batch(jplan, stacks, engine=engine,
+                                                **ekw))
         assert _maxdiff(got, ref) <= 1, engine
     for p in plan.placements:
         if geometry.placement_copy_offsets(p, plan.filter) is None:
@@ -89,7 +102,8 @@ def test_batched_orientations_match_oracle(o):
     stacks = [rng.integers(0, 256, (2, 23, 37, 3), np.uint8),
               rng.integers(0, 256, (2, 29, 45, 3), np.uint8)]
     got = batch.BatchedStitch(plan, 2, device="cpu")(stacks)
-    assert _maxdiff(got, _oracle(plan, stacks)) <= 1
+    jplan = _jax_plan([(37, 23, o), (45, 29, 1)], mode="max", gap=2.5)
+    assert _maxdiff(got, _oracle(jplan, stacks)) <= 1
 
 
 @pytest.mark.parametrize("name", ["mixed", "orient6-min", "gray",

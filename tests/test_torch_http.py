@@ -4,7 +4,8 @@ health and stats, warmup, and the status mapping (400, 413, 501, 503, 504,
 
 Answers are held to ``imagestitching_tpu_torch.stitch`` on the same bytes
 bit for bit (the same decoder and arithmetic on either path), and to the
-float64 oracle within 1 uint8 step.
+float64 oracle within 1 uint8 step, on the JAX package's own plan of the
+job.
 """
 
 import base64
@@ -19,6 +20,7 @@ import pytest
 from PIL import Image
 
 import imagestitching_tpu_torch as itt
+from imagestitching_tpu.config import StitchOptions as JaxStitchOptions
 from imagestitching_tpu.core import oracle
 from imagestitching_tpu.core.layout import ImageSpec, solve
 from imagestitching_tpu.imgio import codec
@@ -86,7 +88,8 @@ def test_stitch_json_roundtrip(srv):
     opts = StitchOptions(gap=4)
     np.testing.assert_array_equal(out, itt.stitch(blobs, options=opts,
                                                   config=CPU))
-    plan = solve([ImageSpec(a.shape[1], a.shape[0]) for a in imgs], opts)
+    plan = solve([ImageSpec(a.shape[1], a.shape[0]) for a in imgs],
+                 JaxStitchOptions(gap=4))
     assert int(np.abs(out.astype(int)
                       - oracle.stitch(plan, imgs).astype(int)).max()) <= 1
 
@@ -165,7 +168,7 @@ def test_concurrent_mixed_requests(srv):
         with _post_json(srv, payload) as resp:
             out = _decode(resp)
         plan = solve([ImageSpec(a.shape[1], a.shape[0]) for a in imgs],
-                     StitchOptions(gap=k % 5))
+                     JaxStitchOptions(gap=k % 5))
         want = oracle.stitch(plan, imgs)
         assert out.shape == want.shape, k
         assert int(np.abs(out.astype(int) - want.astype(int)).max()) <= 1

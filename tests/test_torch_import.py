@@ -1,10 +1,15 @@
-"""The port stands apart from JAX, and ``chip_smoke.py`` refuses to report
-without a card.
+"""The port stands apart from JAX and from the JAX package, and
+``chip_smoke.py`` refuses to report without a card.
 
 The test process itself has JAX loaded (tests/conftest.py imports it), so
-the import checks run in fresh subprocesses.
+the import checks run in fresh subprocesses: once as they are, and once
+more with a ``sys.meta_path`` finder that makes ``imagestitching_tpu``
+unimportable, so the port's entry points are shown to run on its own copies
+of the host layers.  An AST walk over every module of the port and over
+``chip_smoke.py`` finds no import of ``jax`` or ``imagestitching_tpu``.
 """
 
+import ast
 import os
 import re
 import shutil
@@ -44,8 +49,8 @@ _CPU_LADDER = """
 import sys
 import numpy as np
 import imagestitching_tpu_torch as itt
-from imagestitching_tpu.core.layout import ImageSpec, solve
-from imagestitching_tpu.runtime import tiler
+from imagestitching_tpu_torch.core.layout import ImageSpec, solve
+from imagestitching_tpu_torch.runtime import tiler
 rng = np.random.default_rng(1)
 specs = [ImageSpec(60, 40, 1), ImageSpec(40, 30, 6)]
 imgs = [rng.integers(0, 256, (s.raw_h, s.raw_w, 3), np.uint8) for s in specs]
@@ -89,15 +94,81 @@ def test_port_never_loads_jax(script):
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
+# Makes the JAX package unimportable in the subprocess it starts; the
+# port (``imagestitching_tpu_torch``) is another name and stays importable.
+_NO_JAX_PACKAGE = """
+import sys
+
+
+class _NoJaxPackage:
+    def find_spec(self, name, path=None, target=None):
+        if name == "imagestitching_tpu" or name.startswith(
+                "imagestitching_tpu."):
+            raise ModuleNotFoundError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, _NoJaxPackage())
+"""
+
+_SERVE_HELP = """
+import runpy
+runpy.run_module("imagestitching_tpu_torch.serve.http", run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("script,argv", [
+    (_IMPORT_ONLY, []), (_CPU_STITCH, []), (_CPU_LADDER, []),
+    (_SERVE_IMPORT, []), (_SERVE_HELP, ["--help"])],
+    ids=["import", "cpu-stitch", "cpu-ladder", "serve-import", "serve-help"])
+def test_port_runs_without_the_jax_package(script, argv):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    check = ("\nassert not [m for m in sys.modules if m == "
+             "'imagestitching_tpu' or m.startswith('imagestitching_tpu.')]\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_PACKAGE + script + check, *argv],
+        cwd=_ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    if argv:
+        assert "--max-batch" in proc.stdout
+
+
+def _sources():
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(_PORT)
+                   for f in fs if f.endswith(".py"))
+    return files + [os.path.join(_ROOT, "chip_smoke.py")]
+
+
 def test_no_port_source_imports_jax():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax)\b", re.M)
-    files = [os.path.join(d, f) for d, _, fs in os.walk(_PORT)
-             for f in fs if f.endswith(".py")]
-    files.append(os.path.join(_ROOT, "chip_smoke.py"))
+    files = _sources()
     assert len(files) >= 9
     for path in files:
         with open(path) as f:
             assert not pattern.search(f.read()), path
+
+
+def _foreign(name):
+    return any(name == m or name.startswith(m + ".")
+               for m in ("jax", "jaxlib", "imagestitching_tpu"))
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, _ROOT))
+def test_no_port_module_imports_the_jax_package(path):
+    """Every ``import`` and ``from ... import`` of the port and of
+    ``chip_smoke.py``, at any depth: none names ``jax`` or
+    ``imagestitching_tpu`` (relative imports stay inside the port)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if _foreign(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _foreign(node.module or ""):
+                found.append(node.module)
+    assert not found, f"{path} imports {found}"
 
 
 def test_kernel_source_is_in_the_package():

@@ -13,20 +13,25 @@ so it also equals B single launches bit for bit.  The windowed kernel is
 the same body on a source row window, so its chunks put together equal the
 single-job kernel's region bit for bit, and a banded job equals the resident
 one.  Whole jobs are held to the float64 oracle within 1 step.
+
+The cases reach what the tiled body does differently: tiles cut by the
+region's edge at odd canvas columns, a 12x bilinear downscale of a
+transposed source (a list of touched lines), lanczos3 with K = 97 taps, a
+4x upscale and one channel.  The file imports only the port, so it runs
+where the JAX package is not installed.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from imagestitching_tpu.config import CanvasLimits, StitchOptions
-from imagestitching_tpu.core import geometry, oracle
-from imagestitching_tpu.core.layout import ImageSpec, solve
-from imagestitching_tpu.runtime import tiler
 from imagestitching_tpu_torch import MemoryBudget, RuntimeConfig, StitchServer
+from imagestitching_tpu_torch.config import CanvasLimits, StitchOptions
+from imagestitching_tpu_torch.core import geometry, oracle
+from imagestitching_tpu_torch.core.layout import ImageSpec, solve
 from imagestitching_tpu_torch.ops import _build, cuda_resize, torch_compose
 from imagestitching_tpu_torch.ops.window import WindowPlan
-from imagestitching_tpu_torch.runtime import pipeline
+from imagestitching_tpu_torch.runtime import pipeline, tiler
 
 pytestmark = pytest.mark.cuda
 
@@ -48,6 +53,21 @@ _CASES = {
        for k in ("triangle", "box", "lanczos3")},
     "gray-c1": ([(500, 400, 1), (300, 350, 8)],
                 dict(direction="horizontal", gap=1.5), None, 1),
+    # regions of 240, 100 and 258 cols by 151 rows at canvas cols 0, 241
+    # and 343: tiles cut by the region's edge, odd c0
+    "edge-odd-c0": ([(97, 61, 1), (151, 100, 6), (77, 45, 3)],
+                    dict(direction="horizontal", mode="max", gap=1.5), None,
+                    3),
+    # 1800 display cols onto 150: a 12x bilinear downscale, transposed
+    "bilinear-12x-transposed": ([(2400, 1800, 6), (150, 200, 1)],
+                                dict(mode="min"), None, 3),
+    # 2400 cols onto 150 with lanczos3: K = 97 taps on both axes
+    "lanczos3-k97": ([(2400, 1800, 1), (150, 100, 1)],
+                     dict(mode="min", filter="lanczos3"), None, 3),
+    "upscale-4x": ([(40, 50, 8), (200, 160, 1)], dict(mode="max", gap=2),
+                   None, 3),
+    "gray-c1-12x-o5": ([(1200, 1800, 5), (100, 80, 1)],
+                       dict(mode="min"), None, 1),
 }
 
 
@@ -164,7 +184,10 @@ def test_broken_build_fails_the_flush(card, monkeypatch):
 def test_window_kernel_equals_plain_version(card, name):
     """Kernel #3 at 16-row chunks (several per placement): every chunk's
     region equals the plain version bit for bit, rows past the chunk stay
-    untouched, and the chunks together equal kernel #1's region."""
+    untouched, and the chunks together equal kernel #1's region.  Each chunk
+    is launched twice: with its rebased taps, and from the placement's taps
+    with its first row and crop start (the banded rung's form, non-zero
+    offsets on every chunk but the first)."""
     plan, imgs = _job(name)
     checked = 0
     for raw, p in zip(imgs, plan.placements):
@@ -179,8 +202,13 @@ def test_window_kernel_equals_plain_version(card, name):
                             dtype=torch.uint8, device=card)
         cuda_resize.resize_place(src, p.orientation, *taps, whole, 0, 0)
         ci0, cw = taps[2:]
+        once = torch.zeros((wp.chunk, wp.n_cols, a3.shape[2]),
+                           dtype=torch.uint8, device=card)
+        launch = cuda_resize.WindowLauncher(
+            taps[0], taps[1], ci0, cw, once,
+            (wp.crop_rows, wp.disp_w, a3.shape[2]))
         for g in range(wp.n_chunks):
-            a, valid, _ = wp.chunk_window(g)
+            a, valid, s_lo = wp.chunk_window(g)
             crop = torch.from_numpy(wp.stage_crop(oriented, g)).to(card)
             ri0, rw = (torch.from_numpy(t).to(card) for t in wp.chunk_taps(g))
             region = torch.zeros((wp.chunk, wp.n_cols, a3.shape[2]),
@@ -193,6 +221,10 @@ def test_window_kernel_equals_plain_version(card, name):
             assert int(d.max()) == 0, f"{name} #{p.index} chunk {g}: {d.max()}"
             assert int(region[valid:].count_nonzero()) == 0
             assert torch.equal(region[:valid], whole[a:a + valid])
+            once.zero_()
+            launch(crop, a, s_lo, valid)
+            assert cuda_resize.window_launches == before + 2
+            assert torch.equal(once, region), f"{name} #{p.index} chunk {g}"
         checked += 1
     assert checked, f"{name}: no resampled placement"
 

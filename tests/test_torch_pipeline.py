@@ -3,7 +3,9 @@
 against the JAX package's ``stitch_arrays`` (Pallas kernel in interpret
 mode) and the float64 oracle.
 
-Same numpy inputs to both packages (``default_rng``).  Tolerance: 1 uint8
+Same numpy inputs to both packages (``default_rng``); the port's side
+runs on the port's own layout types, the reference side on the JAX
+package's.  Tolerance: 1 uint8
 step (f32 sums against f64, and the JAX kernel's matmul order against the
 port's gathers); the golden fixture is held to 1 step as in
 tests/test_golden.py:38-44; host-blit jobs are bit-exact.
@@ -17,15 +19,17 @@ import pytest
 import torch
 
 from imagestitching_tpu import api as jax_api
+from imagestitching_tpu import config as jax_config
 from imagestitching_tpu.config import RuntimeConfig as JaxRuntimeConfig
+from imagestitching_tpu.core import layout as jax_layout
 from imagestitching_tpu.core import oracle
-from imagestitching_tpu.core.layout import ImageSpec, solve
-from imagestitching_tpu.imgio import codec
 from imagestitching_tpu.runtime import pipeline as jax_pipeline
-from imagestitching_tpu.runtime import tiler
 from imagestitching_tpu_torch import (MemoryBudget, RuntimeConfig,
                                       StitchOptions, api)
-from imagestitching_tpu_torch.runtime import pipeline
+from imagestitching_tpu_torch.core.layout import ImageSpec, solve
+from imagestitching_tpu_torch.imgio import codec
+from imagestitching_tpu_torch.runtime import pipeline, tiler
+from imagestitching_tpu_torch.runtime.logger import StitchLogger, set_logger
 
 CPU = RuntimeConfig(device="cpu")
 _GOLDEN = os.path.join(os.path.dirname(__file__), "data", "golden_v1.npz")
@@ -73,6 +77,19 @@ def _specs(shapes):
     return [ImageSpec(w, h, o) for w, h, o in shapes]
 
 
+def _jax_specs(shapes):
+    return [jax_layout.ImageSpec(w, h, o) for w, h, o in shapes]
+
+
+def _jax_opts(opts):
+    """The port's options as the JAX package's type, for its calls."""
+    return jax_config.StitchOptions(**dataclasses.asdict(opts))
+
+
+def _jax_plan(shapes, opts):
+    return jax_layout.solve(_jax_specs(shapes), _jax_opts(opts))
+
+
 def _maxdiff(a, b):
     assert a.shape == b.shape, (a.shape, b.shape)
     return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
@@ -80,7 +97,7 @@ def _maxdiff(a, b):
 
 def _oracle(imgs, shapes, opts):
     imgs = jax_api._unify_channels([jax_api._as_uint8(a) for a in imgs])
-    return oracle.stitch(solve(_specs(shapes), opts), imgs)
+    return oracle.stitch(_jax_plan(shapes, opts), imgs)
 
 
 @pytest.mark.parametrize("name", ["golden", "config3-small", "gray",
@@ -92,7 +109,7 @@ def test_slice_matches_jax_pallas_and_oracle(name):
     assert isinstance(got, np.ndarray) and got.dtype == np.uint8
     assert m.strategy == "resident"
     jax_out = jax_api.stitch_arrays(
-        imgs, _specs(shapes), opts,
+        imgs, _jax_specs(shapes), _jax_opts(opts),
         JaxRuntimeConfig(engine="pallas", interpret=True))
     assert _maxdiff(got, np.asarray(jax_out)) <= 1
     assert _maxdiff(got, _oracle(imgs, shapes, opts)) <= 1
@@ -114,7 +131,7 @@ def test_host_blit_is_bit_exact_and_touches_no_device(device):
                                return_metrics=True)
     assert m.strategy == "host-blit"
     np.testing.assert_array_equal(got, _oracle(imgs, shapes, opts))
-    jax_out, jm = jax_pipeline.run(solve(_specs(shapes), opts), imgs,
+    jax_out, jm = jax_pipeline.run(_jax_plan(shapes, opts), imgs,
                                    JaxRuntimeConfig())
     assert jm.strategy == "host-blit"
     np.testing.assert_array_equal(got, jax_out)
@@ -174,8 +191,10 @@ def test_budget_beyond_resident_raises_not_implemented(strategy):
     assert m.strategy == strategy
     np.testing.assert_array_equal(
         got, api.stitch_arrays(imgs, _specs(shapes), opts, CPU))
-    jax_out, jm = jax_pipeline.run(plan, imgs, JaxRuntimeConfig(
-        engine="pallas", interpret=True, budget=budget))
+    jax_out, jm = jax_pipeline.run(_jax_plan(shapes, opts), imgs,
+                                   JaxRuntimeConfig(
+        engine="pallas", interpret=True,
+        budget=jax_config.MemoryBudget(hbm_bytes=budget.hbm_bytes)))
     assert jm.strategy == strategy
     assert _maxdiff(got, np.asarray(jax_out)) <= 1
     assert _maxdiff(got, _oracle(imgs, shapes, opts)) <= 1
@@ -233,14 +252,14 @@ def test_taps_not_shared_across_fractional_offsets():
     shape_signature and must not share cached taps (keyed on signature)."""
     rng = np.random.default_rng(11)
     imgs = [rng.integers(0, 256, (h, 100, 3), np.uint8) for h in (50, 60)]
-    specs = [ImageSpec(100, 50), ImageSpec(100, 60)]
-    pa = solve(specs, StitchOptions(gap=0.51, supersample=False))
-    pb = solve(specs, StitchOptions(gap=0.69, supersample=False))
+    shapes = [(100, 50, 1), (100, 60, 1)]
+    opts = [StitchOptions(gap=g, supersample=False) for g in (0.51, 0.69)]
+    pa, pb = (solve(_specs(shapes), o) for o in opts)
     assert pa.shape_signature() == pb.shape_signature()
     assert pa.signature() != pb.signature()
-    for plan in (pa, pb):
+    for plan, o in zip((pa, pb), opts):
         out, _ = pipeline.run(plan, imgs, CPU)
-        assert _maxdiff(out, oracle.stitch(plan, imgs)) <= 1
+        assert _maxdiff(out, oracle.stitch(_jax_plan(shapes, o), imgs)) <= 1
 
 
 @pytest.mark.parametrize("exc,oom", [
@@ -258,7 +277,6 @@ def test_resident_oom_surfaces_as_memory_error(monkeypatch):
     """An OOM on every rung -- resident, streamed and every banded band --
     surfaces as MemoryError, chained to the last OOM; an OOM on the
     resident rung alone demotes (tests/test_torch_recovery.py)."""
-    from imagestitching_tpu.runtime.logger import StitchLogger, set_logger
     from imagestitching_tpu_torch.ops import cuda_resize
 
     def exhausted(*a, **k):

@@ -5,7 +5,8 @@ A rung that runs out of device memory hands the job to the next rung
 (resident -> streamed -> banded with shrinking bands); any other error
 propagates; ``MemoryError`` comes only when every rung ran out.  A demoted
 job's canvas equals the resident canvas bit for bit (the rungs run the same
-f32 sums) and the oracle within 1 uint8 step.
+f32 sums) and the oracle within 1 uint8 step.  The port runs on its own
+layout types; the JAX package's ladder and oracle on the JAX package's.
 """
 
 import gc
@@ -15,14 +16,16 @@ import numpy as np
 import pytest
 import torch
 
+from imagestitching_tpu import config as jax_config
+from imagestitching_tpu.core import layout as jax_layout
 from imagestitching_tpu.core import oracle
-from imagestitching_tpu.core.layout import ImageSpec, solve
 from imagestitching_tpu.runtime import pipeline as jax_pipeline
-from imagestitching_tpu.runtime import tiler
-from imagestitching_tpu.runtime.logger import StitchLogger, set_logger
+from imagestitching_tpu.runtime import tiler as jax_tiler
 from imagestitching_tpu_torch import MemoryBudget, RuntimeConfig, StitchOptions
+from imagestitching_tpu_torch.core.layout import ImageSpec, solve
 from imagestitching_tpu_torch.ops import cuda_resize
-from imagestitching_tpu_torch.runtime import pipeline
+from imagestitching_tpu_torch.runtime import pipeline, tiler
+from imagestitching_tpu_torch.runtime.logger import StitchLogger, set_logger
 
 CPU = RuntimeConfig(device="cpu")
 _SPECS = [ImageSpec(64, 48), ImageSpec(48, 64, orientation=6),
@@ -34,6 +37,14 @@ def _job():
     imgs = [rng.integers(0, 256, (s.raw_h, s.raw_w, 3), np.uint8)
             for s in _SPECS]
     return solve(_SPECS, StitchOptions(supersample=False)), imgs
+
+
+def _oracle(imgs):
+    """The JAX package's oracle on its own plan of :func:`_job`'s job."""
+    specs = [jax_layout.ImageSpec(s.raw_w, s.raw_h, s.orientation)
+             for s in _SPECS]
+    return oracle.stitch(jax_layout.solve(
+        specs, jax_config.StitchOptions(supersample=False)), imgs)
 
 
 @pytest.fixture
@@ -53,13 +64,17 @@ def _oom(*a, **k):
     ("resident", None), ("streamed", None), ("banded", 512), ("banded", 8)])
 @pytest.mark.parametrize("shape", ["tall", "short"])
 def test_strategy_ladder_matches_jax(strategy, band, shape):
-    specs = ([ImageSpec(100, 100)] if shape == "tall"
-             else [ImageSpec(45, 6, 3), ImageSpec(42, 39, 5)])
-    plan = solve(specs, StitchOptions(direction="horizontal",
-                                      supersample=False))
+    shapes = ([(100, 100, 1)] if shape == "tall"
+              else [(45, 6, 3), (42, 39, 5)])
+    plan = solve([ImageSpec(*s) for s in shapes],
+                 StitchOptions(direction="horizontal", supersample=False))
     ex = tiler.ExecutionPlan(strategy, 0, 10 ** 9, band_rows=band)
     got = pipeline._strategy_ladder(ex, plan)
-    assert got == jax_pipeline._strategy_ladder(ex, plan)
+    jplan = jax_layout.solve(
+        [jax_layout.ImageSpec(*s) for s in shapes],
+        jax_config.StitchOptions(direction="horizontal", supersample=False))
+    assert got == jax_pipeline._strategy_ladder(
+        jax_tiler.ExecutionPlan(strategy, 0, 10 ** 9, band_rows=band), jplan)
     names = [s for s, _ in got]
     assert names[0] == strategy and names.count("banded") >= 1
     bands = [b for s, b in got if s == "banded"]
@@ -106,7 +121,7 @@ def test_resident_oom_demotes_to_streamed(monkeypatch, events, exc):
     out, m = pipeline.run(plan, imgs, CPU)
     assert calls == [1] and m.strategy == "streamed"
     np.testing.assert_array_equal(out, want)
-    assert int(np.abs(out.astype(int) - oracle.stitch(plan, imgs)).max()) <= 1
+    assert int(np.abs(out.astype(int) - _oracle(imgs)).max()) <= 1
     retries = events("pipeline.oom_retry")
     assert [(e["failed"], e["band"]) for e in retries] == [("resident", None)]
     assert events("pipeline.done")[-1]["strategy"] == "streamed"

@@ -1,12 +1,16 @@
 """The port's resize-and-place (plain version, on the CPU) against the JAX
 package: the Pallas kernel in interpret mode, the XLA engine and the oracle.
 
-Every case feeds the same numpy inputs (``default_rng``) to both packages.
+Every case feeds the same numpy inputs (``default_rng``) to both packages,
+each on its own plan of the job (the port's layout types and the JAX
+package's, solved from the same specs and options).
 Tolerance: 1 uint8 step.  The JAX kernel contracts f32 banded matmuls in
 interpret mode (pallas_resize.py:504-527) where the port gathers, and the
 oracle sums in float64, so a sum that lands within float32 rounding of a .5
 boundary may quantize one step apart.  Identity copies are exact.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -14,11 +18,16 @@ import torch
 
 import jax.numpy as jnp
 
-from imagestitching_tpu.config import CanvasLimits, StitchOptions
-from imagestitching_tpu.core import geometry, oracle
-from imagestitching_tpu.core.layout import ImageSpec, solve
+from imagestitching_tpu import config as jax_config
+from imagestitching_tpu.core import geometry as jax_geometry
+from imagestitching_tpu.core import layout as jax_layout
+from imagestitching_tpu.core import oracle
 from imagestitching_tpu.ops import pallas_resize, xla_compose
+from imagestitching_tpu_torch.config import CanvasLimits, StitchOptions
+from imagestitching_tpu_torch.core import geometry
+from imagestitching_tpu_torch.core.layout import ImageSpec, solve
 from imagestitching_tpu_torch.ops import _build, cuda_resize, torch_compose
+from imagestitching_tpu_torch.ops.window import WindowPlan
 
 _CASES = {
     "bilinear-down": ([(64, 48, 1), (40, 30, 1)], dict(mode="min"), None),
@@ -36,14 +45,24 @@ _CASES = {
 }
 
 
+def _jax_plan(shapes, opts, limits=None):
+    """The JAX package's plan of the same job, from its own types."""
+    return jax_layout.solve(
+        [jax_layout.ImageSpec(w, h, o) for w, h, o in shapes],
+        jax_config.StitchOptions(**dataclasses.asdict(opts)),
+        None if limits is None
+        else jax_config.CanvasLimits(**dataclasses.asdict(limits)))
+
+
 def _job(name):
+    """(port plan, JAX plan, images) of one named case."""
     shapes, kw, limits = _CASES[name]
-    plan = solve([ImageSpec(w, h, o) for w, h, o in shapes],
-                 StitchOptions(supersample=False, **kw), limits)
+    opts = StitchOptions(supersample=False, **kw)
+    plan = solve([ImageSpec(w, h, o) for w, h, o in shapes], opts, limits)
     rng = np.random.default_rng(sum(map(ord, name)))
     c = 1 if name == "gray" else 3
     imgs = [rng.integers(0, 256, (h, w, c), np.uint8) for w, h, _ in shapes]
-    return plan, imgs
+    return plan, _jax_plan(shapes, opts, limits), imgs
 
 
 def _port_region(raw, p, kind):
@@ -74,7 +93,7 @@ def _xla_region(raw, p, kind):
 
 
 def _oracle_region(raw, p, kind):
-    oriented = geometry.orient_array(raw, p.orientation)
+    oriented = jax_geometry.orient_array(raw, p.orientation)
     rows = oracle.resample_axis(oriented, 0, *p.row_span, p.y0, p.h, kind)
     return oracle.to_uint8(
         oracle.resample_axis(rows, 1, *p.col_span, p.x0, p.w, kind))
@@ -87,14 +106,14 @@ def _maxdiff(a, b):
 
 @pytest.mark.parametrize("name", sorted(_CASES))
 def test_plain_resize_place_matches_jax_and_oracle(name):
-    plan, imgs = _job(name)
+    plan, jplan, imgs = _job(name)
     checked = 0
-    for raw, p in zip(imgs, plan.placements):
+    for raw, p, jp in zip(imgs, plan.placements, jplan.placements):
         if geometry.placement_copy_offsets(p, plan.filter) is not None:
             continue
         got = _port_region(raw, p, plan.filter)
         for ref in (_pallas_region, _xla_region, _oracle_region):
-            d = _maxdiff(got, ref(raw, p, plan.filter))
+            d = _maxdiff(got, ref(raw, jp, jplan.filter))
             assert d <= 1, f"{name} #{p.index} vs {ref.__name__}: {d}"
         checked += 1
     assert checked, f"{name}: no resampled placement"
@@ -109,8 +128,8 @@ def test_identity_placement_is_exact():
         raw = rng.integers(0, 256, (p.raw_h, p.raw_w, 3), np.uint8)
         nr = p.row_span[1] - p.row_span[0]
         nc = p.col_span[1] - p.col_span[0]
-        want = geometry.orient_array(raw, p.orientation)[sr:sr + nr,
-                                                         sc:sc + nc]
+        want = jax_geometry.orient_array(raw, p.orientation)[sr:sr + nr,
+                                                             sc:sc + nc]
         np.testing.assert_array_equal(_port_region(raw, p, plan.filter), want)
 
 
@@ -134,14 +153,14 @@ def test_exact_halves_round_half_up():
 @pytest.mark.parametrize("kind", ["bilinear", "triangle", "box", "lanczos3"])
 def test_placement_taps_equal_xla_params(kind):
     """The state the port carries across from the JAX package: the same f32
-    taps, element for element, from the shared f64 ``filter_taps``."""
-    plan, _ = _job("triangle-down")
-    plan = solve([ImageSpec(p.raw_w, p.raw_h, p.orientation)
-                  for p in plan.placements],
-                 StitchOptions(direction="horizontal", gap=3.5, filter=kind))
-    for p in plan.placements:
+    taps, element for element, from the same f64 ``filter_taps``."""
+    shapes = _CASES["triangle-down"][0]
+    opts = StitchOptions(direction="horizontal", gap=3.5, filter=kind)
+    plan = solve([ImageSpec(w, h, o) for w, h, o in shapes], opts)
+    for p, jp in zip(plan.placements,
+                     _jax_plan(shapes, opts).placements):
         got = torch_compose.placement_taps(p, kind)
-        want = xla_compose.placement_params(p, kind)
+        want = xla_compose.placement_params(jp, kind)
         for axis in ("rows", "cols"):
             for f in ("i0", "w"):
                 a, b = got[axis][f], want[axis][f]
@@ -230,3 +249,70 @@ def test_kernel_build_flags_and_missing_nvcc(monkeypatch):
     monkeypatch.setattr(_build.os, "access", lambda *a: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def _window_job(kind="bilinear", chunk=8):
+    """A placement of a downscaled, rotated source and its WindowPlan."""
+    plan = solve([ImageSpec(120, 90, 6), ImageSpec(40, 30, 1)],
+                 StitchOptions(mode="min", supersample=False, filter=kind))
+    p = plan.placements[0]
+    raw = np.random.default_rng(17).integers(0, 256, (p.raw_h, p.raw_w, 3),
+                                             np.uint8)
+    return p, geometry.orient_array(raw, p.orientation), \
+        WindowPlan(p, plan.filter, chunk)
+
+
+@pytest.mark.parametrize("kind,chunk", [("bilinear", 8), ("lanczos3", 8),
+                                        ("box", 16), ("triangle", 5)])
+def test_window_launcher_on_cpu_equals_rebased_taps(kind, chunk):
+    """The banded rung's form of kernel #3 -- the placement's taps once, per
+    chunk its first tap row and crop start -- gives each chunk the region
+    its rebased taps give, rows past the chunk untouched, no launch
+    counted (the plain version on the CPU)."""
+    p, oriented, wp = _window_job(kind, chunk)
+    assert wp.n_chunks > 2
+    taps = [torch.from_numpy(a) for a in (wp.ri0, wp.rw, wp.ci0, wp.cw)]
+    region = torch.zeros((wp.chunk, wp.n_cols, 3), dtype=torch.uint8)
+    launch = cuda_resize.WindowLauncher(*taps, region,
+                                        (wp.crop_rows, wp.disp_w, 3))
+    before = cuda_resize.window_launches
+    shifted = 0
+    for g in range(wp.n_chunks):
+        a, valid, s_lo = wp.chunk_window(g)
+        crop = torch.from_numpy(wp.stage_crop(oriented, g))
+        region.fill_(7)
+        launch(crop, a, s_lo, valid)
+        want = cuda_resize.resize_place_window_ref(
+            crop, *map(torch.from_numpy, wp.chunk_taps(g)), *taps[2:])
+        assert torch.equal(region[:valid], want), g
+        assert bool((region[valid:] == 7).all())
+        assert torch.equal(want, cuda_resize.resize_place_window_ref(
+            crop, *taps, a, s_lo, valid))
+        shifted += s_lo > 0
+    assert shifted and cuda_resize.window_launches == before
+
+
+@pytest.mark.parametrize("bad", ["crop-shape", "crop-dtype", "rows-past",
+                                 "region-short", "crop-shape-ctor"])
+def test_window_launcher_rejects_what_the_kernel_does_not_take(bad):
+    _, oriented, wp = _window_job()
+    taps = [torch.from_numpy(a) for a in (wp.ri0, wp.rw, wp.ci0, wp.cw)]
+    region = torch.zeros((wp.chunk, wp.n_cols, 3), dtype=torch.uint8)
+    shape = (wp.crop_rows, wp.disp_w, 3)
+    if bad == "crop-shape-ctor":
+        with pytest.raises(ValueError):
+            cuda_resize.WindowLauncher(*taps, region, shape[:2] + (1,))
+        return
+    launch = cuda_resize.WindowLauncher(*taps, region, shape)
+    crop = torch.from_numpy(wp.stage_crop(oriented, 0))
+    a, valid, s_lo = wp.chunk_window(0)
+    if bad == "crop-shape":
+        crop = crop[1:].contiguous()
+    elif bad == "crop-dtype":
+        crop = crop.float()
+    elif bad == "rows-past":
+        a = wp.n_rows - 1
+    else:
+        valid = wp.chunk + 1
+    with pytest.raises(ValueError):
+        launch(crop, a, s_lo, valid)

@@ -4,24 +4,28 @@ cancellation, budget caps, warmup and latency counters; the scenarios of
 tests/test_server.py that the port supports.
 
 Jobs are held to the float64 oracle within 1 uint8 step (f32 against f64),
-and where it is cheap to the JAX ``StitchServer(engine="xla")`` within 1.
-Every future waits a few seconds at most.
+and where it is cheap to the JAX ``StitchServer(engine="xla")`` within 1;
+the references run on the JAX package's own plan of the job.  Every future
+waits a few seconds at most.
 """
 
+import dataclasses
 import threading
 from concurrent.futures import wait as fwait
 
 import numpy as np
 import pytest
 
+from imagestitching_tpu import config as jax_config
+from imagestitching_tpu.core import layout as jax_layout
 from imagestitching_tpu.core import oracle
-from imagestitching_tpu.core.layout import ImageSpec, solve
-from imagestitching_tpu.runtime import tiler
-from imagestitching_tpu.runtime.logger import get_logger
 from imagestitching_tpu.serve.server import StitchServer as JaxStitchServer
 from imagestitching_tpu_torch import (CanvasLimits, MemoryBudget,
                                       RuntimeConfig, StitchOptions)
+from imagestitching_tpu_torch.core.layout import ImageSpec, solve
 from imagestitching_tpu_torch.parallel import batch
+from imagestitching_tpu_torch.runtime import tiler
+from imagestitching_tpu_torch.runtime.logger import get_logger
 from imagestitching_tpu_torch.serve.server import (ServerOverloaded,
                                                    StitchServer)
 
@@ -40,6 +44,18 @@ def server(**kw):
     return StitchServer(**kw)
 
 
+def _jax_opts(opts):
+    return jax_config.StitchOptions(**dataclasses.asdict(opts))
+
+
+def _oracle(shapes, opts, imgs):
+    """The JAX package's oracle on its own plan of the job; ``shapes`` are
+    ``(raw_w, raw_h)``."""
+    plan = jax_layout.solve([jax_layout.ImageSpec(w, h) for w, h in shapes],
+                            _jax_opts(opts))
+    return oracle.stitch(plan, imgs)
+
+
 def _maxdiff(a, b):
     assert a.shape == b.shape, (a.shape, b.shape)
     return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
@@ -50,10 +66,10 @@ def test_single_job_matches_oracle_and_jax_server():
     opts = StitchOptions(gap=2)
     with server(max_batch=8) as s:
         out = s.submit(imgs, opts).result(timeout=T)
-    plan = solve([ImageSpec(32, 24), ImageSpec(24, 24)], opts)
-    assert _maxdiff(out, oracle.stitch(plan, imgs)) <= 1
+    assert _maxdiff(out, _oracle([(32, 24), (24, 24)], opts, imgs)) <= 1
     with JaxStitchServer(max_batch=8, max_wait_s=0.002, engine="xla") as js:
-        assert _maxdiff(out, js.submit(imgs, opts).result(timeout=60)) <= 1
+        assert _maxdiff(out, js.submit(imgs, _jax_opts(opts)).result(
+            timeout=60)) <= 1
 
 
 def test_batches_same_signature():
@@ -62,10 +78,9 @@ def test_batches_same_signature():
         for _ in range(8):
             imgs = [rand_img(40, 20), rand_img(20, 30)]
             jobs.append((imgs, s.submit(imgs)))
-        plan = solve([ImageSpec(40, 20), ImageSpec(20, 30)], StitchOptions())
         for imgs, fut in jobs:
-            assert _maxdiff(fut.result(timeout=T),
-                            oracle.stitch(plan, imgs)) <= 1
+            assert _maxdiff(fut.result(timeout=T), _oracle(
+                [(40, 20), (20, 30)], StitchOptions(), imgs)) <= 1
         st = s.stats()
     assert st["jobs"] == 8
     assert st["batches"] <= 4               # bucketed, not per job
@@ -86,7 +101,6 @@ def test_mixed_signatures():
 def test_background_not_shared_across_jobs():
     o_black = StitchOptions(gap=6, background=(0, 0, 0))
     o_red = StitchOptions(gap=6, background=(255, 0, 0))
-    specs = [ImageSpec(20, 12), ImageSpec(20, 10)]
     with server(max_batch=8, max_wait_s=0.01) as s:
         imgs1 = [rand_img(20, 12), rand_img(20, 10)]
         imgs2 = [rand_img(20, 12), rand_img(20, 10)]
@@ -94,7 +108,7 @@ def test_background_not_shared_across_jobs():
         out1, out2 = f1.result(timeout=T), f2.result(timeout=T)
     assert tuple(out1[12, 0]) == (0, 0, 0)
     assert tuple(out2[12, 0]) == (255, 0, 0)
-    assert _maxdiff(out2, oracle.stitch(solve(specs, o_red), imgs2)) <= 1
+    assert _maxdiff(out2, _oracle([(20, 12), (20, 10)], o_red, imgs2)) <= 1
 
 
 def test_failure_isolation_at_submit():
@@ -172,8 +186,8 @@ def test_budget_caps_batch_proactively():
             imgs = [rand_img(64, 48), rand_img(48, 64)]
             jobs.append((imgs, s.submit(imgs, StitchOptions(gap=2))))
         for imgs, fut in jobs:
-            assert _maxdiff(fut.result(timeout=T),
-                            oracle.stitch(plan, imgs)) <= 1
+            assert _maxdiff(fut.result(timeout=T), _oracle(
+                [(64, 48), (48, 64)], StitchOptions(gap=2), imgs)) <= 1
         st = s.stats()
     assert st["jobs"] == 10
     assert st["batches"] >= 4               # ceil(10 / 3) flushes at least
@@ -208,7 +222,7 @@ def test_cancelled_future_does_not_poison_batch():
 
 
 def test_overload_rejects_before_normalization(monkeypatch):
-    import imagestitching_tpu.api as api_mod
+    import imagestitching_tpu_torch.api as api_mod
 
     def boom(a):
         raise AssertionError("normalization ran before admission")
@@ -245,8 +259,8 @@ def test_rgba_flattens_like_decode():
     imgs = [rand_img(32, 24, 4), rand_img(28, 20, 4)]
     with server(max_batch=4) as s:
         out = s.submit(imgs, StitchOptions(gap=2)).result(timeout=T)
-    plan = solve([ImageSpec(32, 24), ImageSpec(28, 20)], StitchOptions(gap=2))
-    want = oracle.stitch(plan, [_flat_white(a) for a in imgs])
+    want = _oracle([(32, 24), (28, 20)], StitchOptions(gap=2),
+                   [_flat_white(a) for a in imgs])
     assert out.shape[2] == 3 and _maxdiff(out, want) <= 1
 
 
@@ -254,9 +268,8 @@ def test_mixed_gray_rgb_promotes():
     imgs = [rng.integers(0, 256, (24, 32), np.uint8), rand_img(28, 20)]
     with server(max_batch=4) as s:
         out = s.submit(imgs, StitchOptions(gap=2)).result(timeout=T)
-    plan = solve([ImageSpec(32, 24), ImageSpec(28, 20)], StitchOptions(gap=2))
-    want = oracle.stitch(plan, [np.repeat(imgs[0][:, :, None], 3, axis=2),
-                                imgs[1]])
+    want = _oracle([(32, 24), (28, 20)], StitchOptions(gap=2),
+                   [np.repeat(imgs[0][:, :, None], 3, axis=2), imgs[1]])
     assert out.shape[2] == 3 and _maxdiff(out, want) <= 1
 
 
@@ -285,8 +298,7 @@ def test_warmup_runs_each_size_then_serves():
         out = s.submit(imgs, opts).result(timeout=T)
         (per_size,) = s._compiled.values()
         assert set(per_size) == {(1, 3), (5, 3)}   # the warmed 1-job entry
-    plan = solve([ImageSpec(32, 24), ImageSpec(28, 20)], opts)
-    assert _maxdiff(out, oracle.stitch(plan, imgs)) <= 1
+    assert _maxdiff(out, _oracle([(32, 24), (28, 20)], opts, imgs)) <= 1
 
 
 def test_warmup_clamps_to_cap_and_max_batch(monkeypatch):
@@ -344,9 +356,8 @@ def test_concurrent_clients_with_cancels():
         if fut.cancelled():
             n_cancelled += 1
             continue
-        plan = solve([ImageSpec(20, 12)], StitchOptions(gap=gap))
-        assert _maxdiff(fut.result(timeout=0),
-                        oracle.stitch(plan, imgs)) <= 1
+        assert _maxdiff(fut.result(timeout=0), _oracle(
+            [(20, 12)], StitchOptions(gap=gap), imgs)) <= 1
     assert st["jobs"] + st["failed"] + n_cancelled == len(jobs)
     assert st["failed"] == 0
 
@@ -382,7 +393,7 @@ def test_deep_downscale_beyond_the_tpu_tap_cap_is_served():
     with server(max_batch=2, max_wait_s=0.0) as s:
         out = s.submit(imgs, opts).result(timeout=T)
         assert s.stats()["failed"] == 0
-    assert _maxdiff(out, oracle.stitch(plan, imgs)) <= 1
+    assert _maxdiff(out, _oracle([(4, 4), (64, 64)], opts, imgs)) <= 1
 
 
 def test_empty_span_placement_is_served():
@@ -394,7 +405,7 @@ def test_empty_span_placement_is_served():
     with server(max_batch=2) as s:
         out = s.submit(imgs, opts).result(timeout=T)
         assert s.stats()["failed"] == 0
-    assert _maxdiff(out, oracle.stitch(plan, imgs)) <= 1
+    assert _maxdiff(out, _oracle([(33, 4), (4, 4)], opts, imgs)) <= 1
 
 
 def test_torch_engine_serves_the_same_bits():

@@ -4,7 +4,9 @@ resident strategy, the JAX package's same strategy and the oracle.
 The scenarios are those of tests/test_tiler_pipeline.py (fence limit,
 streamed, banded, upscale with orientations, progress, windowed chunks,
 copy blit, wide-filter band alignment, short canvas), on the same numpy
-inputs (``default_rng``) for both packages.
+inputs (``default_rng``) for both packages.  The port runs on its own
+layout types and tiler; the JAX package on its own, solved from the same
+specs and options.
 
 Tolerances:
 
@@ -20,20 +22,24 @@ Tolerances:
   exact.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from imagestitching_tpu import config as jax_config
 from imagestitching_tpu.config import RuntimeConfig as JaxRuntimeConfig
-from imagestitching_tpu.core import geometry, oracle
-from imagestitching_tpu.core.layout import ImageSpec, solve
+from imagestitching_tpu.core import layout as jax_layout
+from imagestitching_tpu.core import oracle
 from imagestitching_tpu.ops import pallas_resize
 from imagestitching_tpu.runtime import pipeline as jax_pipeline
-from imagestitching_tpu.runtime import tiler
 from imagestitching_tpu_torch import MemoryBudget, RuntimeConfig, StitchOptions
+from imagestitching_tpu_torch.core import geometry
+from imagestitching_tpu_torch.core.layout import ImageSpec, solve
 from imagestitching_tpu_torch.ops import cuda_resize
 from imagestitching_tpu_torch.ops.window import WindowPlan
-from imagestitching_tpu_torch.runtime import pipeline
+from imagestitching_tpu_torch.runtime import pipeline, tiler
 
 CPU = torch.device("cpu")
 
@@ -47,6 +53,18 @@ def _imgs(specs, seed):
 def _plan(specs, **kw):
     kw.setdefault("supersample", False)
     return solve(specs, StitchOptions(**kw))
+
+
+def _jax_plan(specs, **kw):
+    """The JAX package's plan of the same job, from its own types."""
+    kw.setdefault("supersample", False)
+    return jax_layout.solve(
+        [jax_layout.ImageSpec(s.raw_w, s.raw_h, s.orientation)
+         for s in specs], jax_config.StitchOptions(**kw))
+
+
+def _jax_budget(budget):
+    return jax_config.MemoryBudget(hbm_bytes=budget.hbm_bytes)
 
 
 def _maxdiff(a, b):
@@ -71,7 +89,7 @@ def _resident(plan, imgs, engine="auto"):
 
 
 def _budget(plan, strategy):
-    """A budget under which the shared tiler picks ``strategy``."""
+    """A budget under which the port's tiler picks ``strategy``."""
     canvas = 3 * plan.canvas_w * plan.canvas_h
     if strategy == "streamed":
         b = tiler.resident_peak_bytes(plan) - 1
@@ -112,13 +130,15 @@ def test_strategy_matches_resident_jax_and_oracle(name, engine):
         device="cpu", engine=engine, budget=budget))
     assert m.strategy == strategy
     np.testing.assert_array_equal(got, _resident(plan, imgs, engine))
+    jplan = _jax_plan(specs, **kw)
     jax_cfg = (JaxRuntimeConfig(engine="pallas", interpret=True,
-                                budget=budget) if engine == "auto"
-               else JaxRuntimeConfig(engine="xla", budget=budget))
-    jax_out, jm = jax_pipeline.run(plan, imgs, jax_cfg)
+                                budget=_jax_budget(budget))
+               if engine == "auto"
+               else JaxRuntimeConfig(engine="xla", budget=_jax_budget(budget)))
+    jax_out, jm = jax_pipeline.run(jplan, imgs, jax_cfg)
     assert jm.strategy == strategy
     assert _maxdiff(got, jax_out) <= 1
-    assert _maxdiff(got, oracle.stitch(plan, imgs)) <= 1
+    assert _maxdiff(got, oracle.stitch(jplan, imgs)) <= 1
 
 
 @pytest.mark.parametrize("strategy", ["streamed", "banded"])
@@ -148,14 +168,15 @@ def test_fence_limit_matches_jax():
     headroom above the canvas, is 0 at no headroom, headroom // 2 when
     plentiful; and equals the JAX package's at every budget."""
     plan = _plan([ImageSpec(1000, 1000)] * 3)
+    jplan = _jax_plan([ImageSpec(1000, 1000)] * 3)
     canvas = 3 * plan.canvas_w * plan.canvas_h
 
     def lim(hbm, jax=False):
-        b = MemoryBudget(hbm_bytes=hbm)
         if jax:
-            return jax_pipeline._fence_limit(plan, 3, JaxRuntimeConfig(
-                budget=b))
-        return pipeline._fence_limit(plan, 3, RuntimeConfig(budget=b))
+            return jax_pipeline._fence_limit(jplan, 3, JaxRuntimeConfig(
+                budget=jax_config.MemoryBudget(hbm_bytes=hbm)))
+        return pipeline._fence_limit(plan, 3, RuntimeConfig(
+            budget=MemoryBudget(hbm_bytes=hbm)))
 
     assert lim(canvas + (6 << 20)) <= 6 << 20
     assert lim(canvas) == 0
@@ -221,11 +242,12 @@ def test_banded_kernel_windowed_chunks(direction, mode):
                  if geometry.placement_copy_offsets(p, plan.filter) is None]
     assert (uploaded > 0) == bool(resampled)
     np.testing.assert_array_equal(got, _resident(plan, imgs))
-    want = jax_pipeline._run_banded_pallas(plan, oriented, 3, band_rows=16,
+    jplan = _jax_plan(_WINDOW_SPECS, direction=direction, mode=mode, gap=3)
+    want = jax_pipeline._run_banded_pallas(jplan, oriented, 3, band_rows=16,
                                            progress=lambda *a: None,
                                            interpret=True)
     assert _maxdiff(got, want) <= 1
-    assert _maxdiff(got, oracle.stitch(plan, imgs)) <= 1
+    assert _maxdiff(got, oracle.stitch(jplan, imgs)) <= 1
 
 
 def test_banded_kernel_copy_blit():
@@ -236,7 +258,8 @@ def test_banded_kernel_copy_blit():
     plan = _plan(specs, gap=2)
     got, uploaded = pipeline._run_banded_kernel(
         plan, _oriented(plan, imgs), 3, 8, CPU, lambda *a: None)
-    np.testing.assert_array_equal(got, oracle.stitch(plan, imgs))
+    np.testing.assert_array_equal(
+        got, oracle.stitch(_jax_plan(specs, gap=2), imgs))
     assert uploaded == 0
 
 
@@ -255,9 +278,10 @@ def test_banded_executor_wide_filter_band_alignment(kind):
     oriented = _oriented(plan, imgs)
     got, _ = pipeline._BandedExecutor(plan, 128, 3, CPU).run(oriented)
     np.testing.assert_array_equal(got, _resident(plan, imgs, "torch"))
-    jax_out = jax_pipeline._BandedExecutor(plan, 128, 3).run(oriented)
+    jplan = _jax_plan(specs, mode="max", gap=3, filter=kind)
+    jax_out = jax_pipeline._BandedExecutor(jplan, 128, 3).run(oriented)
     assert _maxdiff(got, jax_out) <= 1
-    assert _maxdiff(got, oracle.stitch(plan, imgs)) <= 1
+    assert _maxdiff(got, oracle.stitch(jplan, imgs)) <= 1
     # the kernel path over the same plan, chunked off the band grid
     kern, _ = pipeline._run_banded_kernel(plan, oriented, 3, 24, CPU,
                                           lambda *a: None)
@@ -282,10 +306,14 @@ def test_banded_ladder_short_canvas(engine):
         device="cpu", engine=engine, budget=budget), return_metrics=True)
     assert m.strategy == "banded"
     np.testing.assert_array_equal(out, _resident(plan, imgs, engine))
-    jax_out, jm = jax_pipeline.run(plan, imgs, JaxRuntimeConfig(
-        budget=budget, interpret=True))
+    jplan = jax_layout.solve(
+        [jax_layout.ImageSpec(s.raw_w, s.raw_h, s.orientation)
+         for s in specs],
+        jax_config.StitchOptions(**dataclasses.asdict(opts)))
+    jax_out, jm = jax_pipeline.run(jplan, imgs, JaxRuntimeConfig(
+        budget=_jax_budget(budget), interpret=True))
     assert jm.strategy == "banded" and _maxdiff(out, jax_out) <= 1
-    assert _maxdiff(out, oracle.stitch(plan, imgs)) <= 1
+    assert _maxdiff(out, oracle.stitch(jplan, imgs)) <= 1
 
 
 _WINDOW_CASES = {
@@ -309,12 +337,14 @@ def test_window_plan_matches_jax(name):
     taps."""
     specs, kw, chunk = _WINDOW_CASES[name]
     plan = _plan(specs, **kw)
+    jplan = _jax_plan(specs, **kw)
     checked = 0
-    for p in plan.placements:
+    for p, jp in zip(plan.placements, jplan.placements):
         if geometry.placement_copy_offsets(p, plan.filter) is not None:
             continue
         got = WindowPlan(p, plan.filter, chunk)
-        want = pallas_resize._WindowPlan(p, plan.filter, 3, chunk_rows=chunk)
+        want = pallas_resize._WindowPlan(jp, jplan.filter, 3,
+                                         chunk_rows=chunk)
         assert got.windows == want.windows and got.n_chunks == want.n_chunks
         assert got.crop_rows == want.crop_rows
         for g in range(got.n_chunks):
