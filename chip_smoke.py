@@ -63,14 +63,36 @@ Phases, one line each; any failure exits non-zero and prints no result:
 15. the same yardsticks for the windowed kernel over config 4's 45 chunks
     as the banded rung launches them, the host time per launch, and where
     a streamed and a banded job's time goes (torch.profiler), the banded
-    one with no per-chunk tap upload.
+    one with no per-chunk tap upload;
+16. the overlapped scheduler: config 4-EXIF written as nine JPEG files with
+    their orientation tags, through ``imagestitching_tpu_torch.stitch(files)``
+    at the default ``RuntimeConfig`` (9 images, so ``overlap="auto"`` takes
+    it): strategy ``overlapped``, kernel #1 launched once per resampled
+    placement, equal to ``overlap="never"`` bit for bit and to the oracle
+    within 1; warm runs of both beside each other; a banded budget and real
+    OOMs (at the canvas, at the first upload) giving
+    ``overlapped/banded``, equal; one profiled warm job;
+17. the streaming export: ``export._stream_device`` on the overlapped job's
+    device canvas into memory (joined equal to ``canvas.cpu()``); with the
+    native codec, ``stitch_to_file`` to PNG and JPEG with the default
+    ``stream="auto"`` against ``stream=False`` (PNG pixels, JPEG bytes
+    equal); BASELINE config 4 proper (9 x 4000x3000 PNG files) to a JPEG,
+    as ``host-blit-stream`` (``host-blit`` without the native codec) with no
+    device allocation and no launch, its bytes equal to the monolithic
+    encoder's;
+18. the CLI: ``python -m imagestitching_tpu_torch.cli`` in a subprocess on
+    config 3 as JPEG files (``--json --metrics``), by default and with
+    ``--engine torch``, its PNG equal to phase 4's path on the same pixels.
 
-Each kernel's launch count is read from its own path: phase 4 for the
-single-job kernel, phase 9 for the batched one, phase 13's banded run for
-the windowed one, each with the counts set to 0 just before.  The last two
-lines are a JSON record of the kernels and the device line ``{"ok": true,
-"device": {...}}``.  Imports nothing of the JAX package.  Before them the
-card's name and power limit, as ``nvidia-smi`` gives them.
+Phases 4-15 pass ``overlap="never"``: they read the non-overlapped path,
+which 9-image jobs leave for the overlapped scheduler by default.  Each
+kernel's launch count is read from its own path: phase 4 for the single-job
+kernel, phase 9 for the batched one, phase 13's banded run for the windowed
+one, and phase 16 for #1 and #3 on the overlapped scheduler
+(``launches_overlapped``), each with the counts set to 0 just before.  The
+last two lines are a JSON record of the kernels and the device line
+``{"ok": true, "device": {...}}``.  Imports nothing of the JAX package.
+Before them the card's name and power limit, as ``nvidia-smi`` gives them.
 """
 
 from __future__ import annotations
@@ -681,6 +703,8 @@ REPLACES_WINDOW = "imagestitching_tpu/ops/pallas_resize.py:721"
 ORIENT4 = (1, 6, 3, 8, 1, 5, 2, 7, 4)
 CONFIG4 = [(4000, 3000, o) for o in ORIENT4]
 CONFIG4_24MP = [(6000, 4000, o) for o in ORIENT4]
+# BASELINE config 4 proper: orientation 1, every placement a copy
+CONFIG4_PLAIN = [(4000, 3000, 1)] * 9
 
 
 def _noop(*_):
@@ -836,7 +860,8 @@ def phase13_config4(dev, smi, shapes=CONFIG4, big=CONFIG4_24MP):
         cuda_resize.window_launches = 0
         t0 = time.perf_counter()
         out, m = itt.stitch(items, options=opts, config=RuntimeConfig(
-            device=str(dev), budget=budget), return_metrics=True)
+            device=str(dev), budget=budget, overlap="never"),
+            return_metrics=True)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev) - base
         launched = (cuda_resize.launches, cuda_resize.batch_launches,
@@ -885,12 +910,12 @@ def phase13_config4(dev, smi, shapes=CONFIG4, big=CONFIG4_24MP):
           f"{ex.strategy}")
     t0 = time.perf_counter()
     out24, m24 = itt.stitch(items24, options=opts24, config=RuntimeConfig(
-        device=str(dev)), return_metrics=True)
+        device=str(dev), overlap="never"), return_metrics=True)
     wall24 = time.perf_counter() - t0
     check(m24.strategy == "streamed", f"24 MP job ran {m24.strategy}")
     want24, mr = itt.stitch(items24, options=opts24, config=RuntimeConfig(
-        device=str(dev), budget=budget_from_device(str(dev))),
-        return_metrics=True)
+        device=str(dev), budget=budget_from_device(str(dev)),
+        overlap="never"), return_metrics=True)
     check(mr.strategy == "resident", f"24 MP resident run: {mr.strategy}")
     check(np.array_equal(out24, want24), "24 MP streamed canvas differs "
           "from the resident one")
@@ -919,7 +944,8 @@ def phase14_ladder(dev, smi, plan, opts, items, ref):
     canvas_bytes = 3 * plan.canvas_w * plan.canvas_h
     src_max = max(a.nbytes for a, _ in items)
     total = torch.cuda.get_device_properties(dev).total_memory
-    cfg = RuntimeConfig(device=str(dev), budget=budget_from_device(str(dev)))
+    cfg = RuntimeConfig(device=str(dev), budget=budget_from_device(str(dev)),
+                        overlap="never")
     log = StitchLogger()
     set_logger(log)
     rows = []
@@ -1075,7 +1101,7 @@ def phase15_window_times(dev, smi, plan, opts, items, parent,
             ("streamed", MemoryBudget(
                 hbm_bytes=tiler.resident_peak_bytes(plan) - 1)),
             ("banded", MemoryBudget(hbm_bytes=canvas_bytes // 2))):
-        cfg = RuntimeConfig(device=str(dev), budget=budget)
+        cfg = RuntimeConfig(device=str(dev), budget=budget, overlap="never")
 
         def job(cfg=cfg):
             itt.stitch(items, options=opts, config=cfg)
@@ -1216,6 +1242,415 @@ def phase11_http(dev, smi):
         f"{stats['batches']} failed {stats['failed']}")
 
 
+def _pattern(dev, w, h, seed, noise_levels=64):
+    """A photo-like uint8 HWC image made on ``dev`` from a seed: smooth
+    gradients with ``noise_levels`` of noise, so its files have a camera's
+    sizes rather than incompressible noise's."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.arange(h, device=dev, dtype=torch.int32)[:, None, None]
+    x = torch.arange(w, device=dev, dtype=torch.int32)[None, :, None]
+    c = torch.tensor([3, 5, 7], device=dev, dtype=torch.int32)[None, None]
+    noise = torch.randint(0, noise_levels, (h, w, 3), generator=g,
+                          device=dev, dtype=torch.int32)
+    img = ((x * c + y * (8 - c)) // 16 + seed * 37 + noise) % 256
+    return img.to(torch.uint8).cpu().numpy()
+
+
+def _write_files(td, shapes, dev, seed, ext):
+    """One file per (raw width, raw height, EXIF orientation) of ``shapes``
+    under ``td``: JPEG (quality 95) with the orientation tag, or PNG
+    (orientation 1 only, 2 levels of noise: a screenshot's rather than a
+    photo's, which keeps Pillow's encode of 12 MP short); written from 8
+    threads.  Returns the paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    def write(k):
+        w, h, o = shapes[k]
+        img = Image.fromarray(_pattern(dev, w, h, seed + k,
+                                       64 if ext == "jpg" else 2))
+        path = os.path.join(td, f"s{seed}-{k}.{ext}")
+        if ext == "jpg":
+            exif = img.getexif()
+            exif[274] = o
+            img.save(path, "JPEG", quality=95, exif=exif)
+        else:
+            check(o == 1, "PNG files carry no orientation here")
+            img.save(path, "PNG", compress_level=1)
+        return path
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(write, range(len(shapes))))
+
+
+def _launch_counts():
+    from imagestitching_tpu_torch.ops import cuda_resize
+
+    return (cuda_resize.launches, cuda_resize.batch_launches,
+            cuda_resize.window_launches)
+
+
+def _zero_counts():
+    from imagestitching_tpu_torch.ops import cuda_resize
+
+    cuda_resize.launches = cuda_resize.batch_launches = 0
+    cuda_resize.window_launches = 0
+
+
+def _times(m):
+    return (f"prepare {m.prepare_s:.4f} stage_wait {m.stage_wait_s:.4f} "
+            f"(max {m.stage_wait_max_s:.4f}) compute {m.compute_s:.4f} "
+            f"readback {m.readback_s:.4f} total {m.total_s:.4f} h2d "
+            f"{m.h2d_bytes}")
+
+
+def phase16_overlapped(dev, smi, td, shapes=CONFIG4):
+    """BASELINE config 4 with EXIF orientations as JPEG files through
+    ``imagestitching_tpu_torch.stitch(files)``: 9 images, so the default
+    ``overlap="auto"`` takes the overlapped scheduler.  Launches counted,
+    the canvas equal to ``overlap="never"`` bit for bit and to the oracle
+    within 1; a banded budget, and real OOMs at the canvas and in the loop,
+    demote to ``overlapped/banded``, equal.  Returns (plan, options, files,
+    decoded sources, reference canvas, kernel #1 launches, kernel #3
+    launches) of the overlapped path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    import imagestitching_tpu_torch as itt
+    from imagestitching_tpu_torch import MemoryBudget, RuntimeConfig
+    from imagestitching_tpu_torch import StitchOptions
+    from imagestitching_tpu_torch.core.layout import ImageSpec, solve
+    from imagestitching_tpu_torch.imgio import codec
+    from imagestitching_tpu_torch.ops.window import WindowPlan
+    from imagestitching_tpu_torch.runtime import tiler
+    from imagestitching_tpu_torch.runtime.logger import (StitchLogger,
+                                                         set_logger)
+
+    t0 = time.perf_counter()
+    files = _write_files(td, shapes, dev, 16, "jpg")
+    write_s = time.perf_counter() - t0
+    mb = sum(os.path.getsize(f) for f in files) / 1e6
+    with ThreadPoolExecutor(8) as pool:
+        raws = [r for r, _ in pool.map(codec.decode, files)]
+    opts = StitchOptions(direction="vertical", mode="min", gap=4,
+                         max_images=None)
+    plan = solve([ImageSpec(w, h, o) for w, h, o in shapes], opts)
+    res = resampled(plan)
+    canvas_bytes = 3 * plan.canvas_w * plan.canvas_h
+    never = RuntimeConfig(device=str(dev), overlap="never")
+
+    # the pinned staging ring's first allocation (cudaHostAlloc), which the
+    # caching host allocator then keeps for every later job
+    slot = max(a.nbytes for a in raws)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ring = [torch.empty(slot, dtype=torch.uint8,
+                        pin_memory=dev.type == "cuda") for _ in range(3)]
+    pin_s = time.perf_counter() - t0
+    del ring
+
+    # the overlapped path, cold, counted from 0
+    _zero_counts()
+    t0 = time.perf_counter()
+    out, m = itt.stitch(files, options=opts, return_metrics=True)
+    cold = time.perf_counter() - t0
+    launched = _launch_counts()
+    check(m.strategy == "overlapped", f"9 JPEG files ran {m.strategy}")
+    check(launched == (len(res), 0, 0), f"overlapped launches {launched}, "
+          f"expected ({len(res)}, 0, 0)")
+    launches_ov = launched[0]
+    ref, mn = itt.stitch(files, options=opts, config=never,
+                         return_metrics=True)
+    check(mn.strategy == "resident", f"overlap=never ran {mn.strategy}")
+    check(np.array_equal(out, ref), "overlapped canvas differs from "
+          "overlap='never'")
+    worst, copy_max = _oracle_spots(plan, raws, out, 256)
+    check(worst <= 1 and copy_max == 0, f"overlapped vs oracle {worst}, "
+          f"copy spans {copy_max}")
+    warm = {"overlapped": [], "never": []}
+    for _ in range(3):
+        for name, cfg in (("overlapped", None), ("never", never)):
+            t0 = time.perf_counter()
+            o, mw = itt.stitch(files, options=opts, config=cfg,
+                               return_metrics=True)
+            warm[name].append((time.perf_counter() - t0, mw))
+            check(np.array_equal(o, ref), f"warm {name} canvas differs")
+    say(f"phase16 config4-EXIF JPEG files ({len(files)} x "
+        f"{shapes[0][0]}x{shapes[0][1]}, {mb:.1f} MB written in "
+        f"{write_s:.3f} s; canvas {plan.canvas_w}x{plan.canvas_h}x3 "
+        f"{canvas_bytes / 1e6:.1f} MB) via imagestitching_tpu_torch.stitch"
+        f"(files): strategy {m.strategy}, launches #1/#2/#3 {launched}, "
+        f"equal to overlap='never', oracle spots max |diff| {worst} copy "
+        f"spans {copy_max} | cold pinned ring 3 x {slot / 1e6:.1f} MB "
+        f"{pin_s * 1e3:.3f} ms | cold job wall {cold:.4f} s ({_times(m)}) "
+        f"| {smi}")
+    for name, runs in warm.items():
+        say(f"phase16 warm {name} (3 jobs) on {smi}: " + " | ".join(
+            f"wall {w:.4f} s {_times(mw)} rtt {mw.transport_rtt_s:.6f}"
+            for w, mw in runs))
+
+    # a banded budget: the tiler plans banded, the body decodes and keeps
+    budget = MemoryBudget(hbm_bytes=canvas_bytes // 2)
+    ex = tiler.plan_execution(plan, budget)
+    check(ex.strategy == "banded", f"budget {budget.hbm_bytes}: tiler picks "
+          f"{ex.strategy}")
+    chunks = sum(WindowPlan(p, plan.filter, ex.band_rows).n_chunks
+                 for p in res)
+    _zero_counts()
+    t0 = time.perf_counter()
+    outb, mb_ = itt.stitch(files, options=opts, config=RuntimeConfig(
+        device=str(dev), budget=budget), return_metrics=True)
+    wall_b = time.perf_counter() - t0
+    launched_b = _launch_counts()
+    check(mb_.strategy == "overlapped/banded", f"banded budget ran "
+          f"{mb_.strategy}")
+    check(launched_b == (0, 0, chunks), f"overlapped/banded launches "
+          f"{launched_b}, expected (0, 0, {chunks})")
+    launches_wov = launched_b[2]
+    check(np.array_equal(outb, ref), "overlapped/banded canvas differs")
+    say(f"phase16 banded budget {budget.hbm_bytes / 1e6:.1f} MB "
+        f"({ex.band_rows}-row bands): strategy {mb_.strategy}, launches "
+        f"#1/#2/#3 {launched_b}, equal | wall {wall_b:.4f} s "
+        f"{_times(mb_)}")
+
+    # real torch.cuda.OutOfMemoryError: a cap below the canvas fails the
+    # canvas allocation; a cap just above it fails the first upload
+    total = torch.cuda.get_device_properties(dev).total_memory
+    log = StitchLogger()
+    set_logger(log)
+    rows = []
+    try:
+        for failed, headroom in (("overlapped-alloc", canvas_bytes // 2),
+                                 ("overlapped", canvas_bytes + (8 << 20))):
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            torch.cuda.set_per_process_memory_fraction(
+                (reserved + headroom) / total, dev)
+            log.clear()
+            t0 = time.perf_counter()
+            o, mo = itt.stitch(files, options=opts, return_metrics=True)
+            wall = time.perf_counter() - t0
+            retries = [e["failed"] for e in log.ring()
+                       if e["tag"] == "pipeline.oom_retry"]
+            redecoded = [e["n"] for e in log.ring()
+                         if e["tag"] == "pipeline.oom_redecode"]
+            check(mo.strategy == "overlapped/banded" and retries == [failed],
+                  f"cap reserved+{headroom}: ran {mo.strategy} after "
+                  f"{retries}, expected overlapped/banded after {failed}")
+            check(np.array_equal(o, ref), f"OOM at {failed}: canvas differs")
+            rows.append(f"cap reserved+{headroom / 1e6:.1f} MB: "
+                        f"{mo.strategy} after oom_retry {retries}, "
+                        f"re-decoded {redecoded or [0]}, wall {wall:.4f} s, "
+                        "equal")
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        set_logger(StitchLogger())
+    say("phase16 OOM on real torch.cuda.OutOfMemoryError (default budget): "
+        + " | ".join(rows))
+
+    # one warm overlapped job under torch.profiler
+    def job():
+        itt.stitch(files, options=opts)
+
+    busy, wall, by_name = device_ms(job, reps=1)
+    groups = {"Memcpy HtoD": 0.0, "resize_place": 0.0, "Memcpy DtoH": 0.0}
+    for name, ms in by_name.items():
+        key = next((k for k in groups if k in name), "other")
+        groups[key] = groups.get(key, 0.0) + ms
+    say(f"phase16 warm overlapped job under torch.profiler on {smi}: host "
+        f"wall {wall:.4f} ms, device busy {busy:.4f} ms, idle (host) share "
+        f"{1 - busy / wall if wall else float('nan'):.4f} | device ms "
+        + " ".join(f"{k}={v:.4f}" for k, v in groups.items()))
+    return plan, opts, files, raws, ref, launches_ov, launches_wov
+
+
+class _Collect:
+    """An in-memory band writer: copies each band into one host array."""
+
+    def __init__(self, h, w):
+        self.out = np.empty((h, w, 3), np.uint8)
+        self.rows = self.writes = 0
+        self.closed = False
+
+    def write(self, band):
+        self.out[self.rows:self.rows + band.shape[0]] = band
+        self.rows += band.shape[0]
+        self.writes += 1
+
+    def close(self):
+        self.closed = True
+
+
+def phase17_export(dev, smi, td, plan, opts, files, shapes=CONFIG4_PLAIN):
+    """The streaming export: ``_stream_device`` on the overlapped job's
+    device canvas into an in-memory writer (always); with the native codec,
+    ``stitch_to_file`` PNG and JPEG with the default ``stream="auto"``
+    against ``stream=False``; BASELINE config 4 proper as PNG files through
+    the pure-copy export, with no device allocation and no launch."""
+    import torch
+    import imagestitching_tpu_torch as itt
+    from imagestitching_tpu_torch import RuntimeConfig, StitchOptions
+    from imagestitching_tpu_torch.imgio import codec, native
+    from imagestitching_tpu_torch.runtime import export
+
+    canvas, mk = itt.stitch(files, options=opts, keep_on_device=True,
+                            return_metrics=True)
+    check(isinstance(canvas, torch.Tensor) and canvas.device == dev
+          and mk.strategy == "overlapped", f"keep_on_device gave "
+          f"{type(canvas).__name__} via {mk.strategy}")
+    h, w = plan.canvas_h, plan.canvas_w
+    band = export.band_rows_for(w)
+    check(h % band != 0, f"band {band} leaves no tail of {h} rows")
+    writer = _Collect(h, w)
+    phases = {"readback_s": 0.0, "encode_s": 0.0}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    export._stream_device(canvas, writer, h, w, 3, band, phases, _noop)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = canvas.cpu().numpy()
+    cpu_s = time.perf_counter() - t0
+    check(writer.closed and writer.rows == h, "band writer incomplete")
+    check(np.array_equal(writer.out, whole), "bands joined differ from "
+          "canvas.cpu()")
+    del canvas
+    lib = native.get_lib()
+    say(f"phase17 _stream_device of the overlapped canvas ({w}x{h}x3, "
+        f"{band}-row bands, {writer.writes} bands, tail {h % band} rows) "
+        f"into memory: joined equal to canvas.cpu() | readback_s "
+        f"{phases['readback_s']:.4f} (CUDA events) copy-out "
+        f"{phases['encode_s']:.4f} wall {wall:.4f} s; canvas.cpu() "
+        f"{cpu_s:.4f} s | native codec: "
+        f"{'loaded ' + os.path.relpath(lib._name, ROOT) if lib else 'not available'}"
+        f" | {smi}")
+
+    if lib is not None:
+        rows = []
+        for ext in ("png", "jpg"):
+            s_path = os.path.join(td, f"stream.{ext}")
+            m_path = os.path.join(td, f"mono.{ext}")
+            ps, ms = itt.stitch_to_file(files, s_path, options=opts,
+                                        return_metrics=True)
+            pm, mm = itt.stitch_to_file(files, m_path, options=opts,
+                                        stream=False, return_metrics=True)
+            check(ms.strategy == "overlapped", f"{ext}: {ms.strategy}")
+            if ext == "png":
+                check(np.array_equal(codec.decode(ps)[0],
+                                     codec.decode(pm)[0]),
+                      "streamed PNG differs from the monolithic one")
+            else:
+                check(open(ps, "rb").read() == open(pm, "rb").read(),
+                      "streamed JPEG bytes differ from the monolithic ones")
+            rows.append(
+                f"{ext} {os.path.getsize(ps)} bytes: streamed readback "
+                f"{ms.readback_s:.4f} encode {ms.encode_s:.4f} export "
+                f"{ms.export_s:.4f} total {ms.total_s:.4f} s | monolithic "
+                f"readback {mm.readback_s:.4f} encode {mm.encode_s:.4f} "
+                f"total {mm.total_s:.4f} s")
+            os.unlink(pm)
+            os.unlink(ps)
+        # the phase dict of the device branch, on a fresh device canvas
+        canvas = itt.stitch(files, options=opts, keep_on_device=True)
+        ph = export.stream_to_jpeg(canvas, os.path.join(td, "direct.jpg"))
+        check(ph["overlapped"], "device canvas not streamed as overlapped")
+        del canvas
+        say("phase17 stitch_to_file(stream='auto') of the config4-EXIF "
+            "files: PNG decodes equal to stream=False, JPEG bytes equal | "
+            + " | ".join(rows) + f" | direct stream_to_jpeg phases "
+            f"readback {ph['readback_s']:.4f} encode {ph['encode_s']:.4f} "
+            f"wall {ph['wall_s']:.4f} overlapped {ph['overlapped']}")
+
+    # BASELINE config 4 proper: 9 x 12 MP PNG files, orientation 1, to a
+    # JPEG (without the native codec the fallback is Pillow's single-thread
+    # PNG encoder, whose pass over 324 MB would be most of the script's time)
+    t0 = time.perf_counter()
+    pngs = _write_files(td, shapes, dev, 40, "png")
+    write_s = time.perf_counter() - t0
+    opts4 = StitchOptions(direction="vertical", mode="min", gap=4,
+                          max_images=None)
+    out_path = os.path.join(td, "config4.jpg")
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    path, m = itt.stitch_to_file(pngs, out_path, options=opts4,
+                                 return_metrics=True)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    launched = _launch_counts()
+    want, mw = itt.stitch(pngs, options=opts4, config=RuntimeConfig(
+        device=str(dev), overlap="never"), return_metrics=True)
+    check(mw.strategy == "host-blit", f"config 4 reference {mw.strategy}")
+    if lib is not None:
+        check(m.strategy == "host-blit-stream", f"config 4 ran {m.strategy}")
+        check(peak == 0 and launched == (0, 0, 0), f"config 4 blit stream: "
+              f"peak device memory {peak}, launches {launched}")
+    mono = codec.encode(os.path.join(td, "config4-mono.jpg"), want)
+    check(open(path, "rb").read() == open(mono, "rb").read(), "config 4 "
+          "file differs from the host blit's monolithic JPEG")
+    say(f"phase17 BASELINE config 4 (9 x {shapes[0][0]}x{shapes[0][1]} "
+        f"PNG files written in "
+        f"{write_s:.3f} s, canvas {want.shape[1]}x{want.shape[0]}x3) via "
+        f"stitch_to_file: strategy {m.strategy}, launches #1/#2/#3 "
+        f"{launched}, peak device memory {peak} bytes, JPEG bytes equal to "
+        f"the host blit's monolithic encode | wall {wall:.4f} s decode {m.prepare_s:.4f} encode "
+        f"{m.encode_s:.4f} export {m.export_s:.4f} s, file "
+        f"{os.path.getsize(path)} bytes | {smi}")
+
+
+def phase18_cli(dev, smi, td, items, opts3):
+    """``python -m imagestitching_tpu_torch.cli`` in a subprocess on config
+    3 as JPEG files with their EXIF orientations (``--json --metrics``),
+    the default engine and then ``--engine torch``: exit 0, the strategy
+    named, the PNG decoded equal to phase 4's path (resident, overlap
+    never) on the same decoded pixels."""
+    import imagestitching_tpu_torch as itt
+    from imagestitching_tpu_torch import RuntimeConfig
+    from imagestitching_tpu_torch.imgio import codec
+
+    shapes = [(a.shape[1], a.shape[0], o) for a, o in items]
+    files = _write_files(td, shapes, dev, 18, "jpg")
+    decoded = [(codec.decode(f)[0], o) for f, (_, o) in zip(files, items)]
+    want = itt.stitch(decoded, options=opts3, config=RuntimeConfig(
+        device=str(dev), overlap="never"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    rows = []
+    for flags in ([], ["--engine", "torch", "--device", "cuda"]):
+        out = os.path.join(td, f"cli{len(flags)}.png")
+        cmd = [sys.executable, "-m", "imagestitching_tpu_torch.cli", *files,
+               "-o", out, "--direction", "horizontal", "--mode", "min",
+               "--gap", "4", "--json", "--metrics", *flags]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"cli {flags}: exit {proc.returncode} "
+              f"{proc.stderr[-2000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        m = res["metrics"]
+        check(m["strategy"] == "overlapped", f"cli {flags}: strategy "
+              f"{m['strategy']}")
+        check(np.array_equal(codec.decode(out)[0], want), f"cli {flags}: "
+              "output differs from phase 4's path")
+        rows.append(f"{' '.join(flags) or 'default'}: exit 0, strategy "
+                    f"{m['strategy']}, {res['width']}x{res['height']}, "
+                    f"seconds {res['seconds']} (prepare {m['prepare_s']} "
+                    f"compute {m['compute_s']} readback {m['readback_s']} "
+                    f"encode {m['encode_s']}), process wall {wall:.3f} s")
+    say("phase18 cli `python -m imagestitching_tpu_torch.cli` on config 3 "
+        "as EXIF JPEG files, --json --metrics, output decoded equal to "
+        "phase 4's path on the same pixels | " + " | ".join(rows)
+        + f" | {smi}")
+
+
 def main() -> None:
     import argparse
 
@@ -1228,6 +1663,8 @@ def main() -> None:
 
     # ---- phase 1: environment
     import torch
+
+    marks = [("start", time.perf_counter())]
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -1375,7 +1812,9 @@ def main() -> None:
              for w, h, o in CONFIG3]
     opts3 = StitchOptions(direction="horizontal", mode="min", gap=4,
                           max_images=None)
-    cfg = RuntimeConfig(device="cuda")
+    # overlap="never": phases 4-7 read the non-overlapped path; the
+    # overlapped scheduler that 9-image jobs take by default is phase 16's
+    cfg = RuntimeConfig(device="cuda", overlap="never")
     plan3 = solve([ImageSpec(w, h, o) for w, h, o in CONFIG3], opts3)
     copies = [p for p in plan3.placements
               if geometry.placement_copy_offsets(p, plan3.filter) is not None]
@@ -1443,12 +1882,15 @@ def main() -> None:
         f"share {1 - busy / wall if wall else float('nan'):.4f} | device "
         "ms/job " + " ".join(f"{k}={v:.4f}" for k, v in groups.items()))
 
+    marks.append(("1-7", time.perf_counter()))
+
     # ---- phases 8-11: batched serving (kernel #2, StitchServer, HTTP)
     worst8 = phase8_batch_vs_plain(cases, dev)
     plan5, stacks5, launches5 = phase9_config5(dev, smi, budget_from_device())
     t10 = phase10_batch_times(dev, smi, plan5, stacks5, parent)
     del stacks5
     phase11_http(dev, smi)
+    marks.append(("8-11", time.perf_counter()))
 
     # ---- phases 12-15: streamed, banded (kernel #3) and the OOM ladder
     worst12 = phase12_window_vs_plain(cases, dev)
@@ -1456,8 +1898,24 @@ def main() -> None:
     phase14_ladder(dev, smi, plan4, opts4, items4, ref4)
     del ref4
     t15 = phase15_window_times(dev, smi, plan4, opts4, items4, parent)
+    del items4
+    marks.append(("12-15", time.perf_counter()))
 
-    def entry(name, replaces, launches, worst, t):
+    # ---- phases 16-18: the file entry point -- the overlapped scheduler,
+    # the streaming export and the CLI
+    with tempfile.TemporaryDirectory() as td:
+        plan16, opts16, files16, _, _, launches_ov, launches_wov = \
+            phase16_overlapped(dev, smi, td)
+        marks.append(("16", time.perf_counter()))
+        phase17_export(dev, smi, td, plan16, opts16, files16)
+        marks.append(("17", time.perf_counter()))
+        phase18_cli(dev, smi, td, items, opts3)
+        marks.append(("18", time.perf_counter()))
+    say("seconds by phase (host clock): " + " ".join(
+        f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in
+        enumerate(marks[1:])) + f" | total {marks[-1][1] - marks[0][1]:.1f}")
+
+    def entry(name, replaces, launches, worst, t, **by_path):
         def r(v):
             return None if v is None else round(v, 6)
 
@@ -1468,15 +1926,20 @@ def main() -> None:
                 "bound_by": "bytes", "library_ms": r(t["library_ms"]),
                 "lib_ms": r(t["library_ms"]), "busy_ms": r(t["kernel_busy"]),
                 "parent_ms": r(t["parent_ms"]),
-                "parent_busy_ms": r(t["parent_busy"])}
+                "parent_busy_ms": r(t["parent_busy"]), **by_path}
 
+    # "launches": the count on the kernel's first path (phase 4, 9 or 13's
+    # banded run); "launches_overlapped": on the overlapped scheduler's run
+    # of phase 16 (its resident plan for #1, its banded budget for #3)
     record = {"kernels": [
         entry("resize_place", REPLACES, launches_main,
-              max(worst_all, t6["worst"]), t6),
+              max(worst_all, t6["worst"]), t6,
+              launches_overlapped=launches_ov),
         entry("resize_place_batch", REPLACES_BATCH, launches5,
               max(worst8, t10["worst"]), t10),
         entry("resize_place_window", REPLACES_WINDOW, launches_w,
-              max(worst12, t15["worst"]), t15)]}
+              max(worst12, t15["worst"]), t15,
+              launches_overlapped=launches_wov)]}
     say(json.dumps(record))
     say(f"gpu: {smi}")
     say(json.dumps({"ok": True, "device": {

@@ -10,7 +10,10 @@ holds each one equal to its original, because they are the parity contract.
 Everything that touched JAX is ported: the resize-and-place kernel,
 single-job, batched and windowed, is hand-written CUDA C++
 (``csrc/resize_place.cu``), built with ``nvcc`` at first use.  Batched
-serving is ``StitchServer`` and its HTTP front end ``StitchHTTPServer``.
+serving is ``StitchServer`` and its HTTP front end ``StitchHTTPServer``;
+files in, file out is ``stitch_to_file`` (the overlapped decode/upload/draw
+scheduler and the streaming export) and ``python -m
+imagestitching_tpu_torch.cli``.
 
 Port of ``imagestitching_tpu/__init__.py:30-47``: the entry points load
 lazily, so ``import imagestitching_tpu_torch`` loads neither JAX nor CUDA.

@@ -1,17 +1,22 @@
 """High-level stitch API of the port: arrays/files in -> array/file out.
 
-Port of ``imagestitching_tpu/api.py:192-233`` (``stitch_arrays``), :284-354
-(``stitch``) and :357-432 (``stitch_to_file``).  The host helpers --
-``prepare`` (parallel decode with failure isolation), ``_load_one``,
-``_decode_with_retry``, ``_flatten_alpha``, ``_as_uint8`` and
-``_unify_channels`` -- are the port's own copies of :25-189, equal to them
-in what they compute; a ``torch.Tensor`` input is read back with
-``.cpu().numpy()`` where the original took a JAX array.
+Port of ``imagestitching_tpu/api.py:192-561``: ``stitch_arrays``,
+``stitch`` with its overlap branch (``_probe_item``, ``_overlappable_array``,
+``_is_big_task``, ``_blit_copies``, ``_stitch_blit_overlapped``) and
+``stitch_to_file`` with the streaming export (``_blit_stream_attempt``,
+``_native_available``).  The host helpers -- ``prepare`` (parallel decode
+with failure isolation), ``_load_one``, ``_decode_with_retry``,
+``_flatten_alpha``, ``_as_uint8`` and ``_unify_channels`` -- are the port's
+own copies of :25-189, equal to them in what they compute; a
+``torch.Tensor`` input counts where the original took a JAX array and is
+read back with ``.cpu().numpy()``.
 
-``stitch`` takes the ``prepare`` -> ``stitch_arrays`` flow for every job.
-The JAX package's overlapped decode/compute scheduler gives the same bits
-and arrives with a later slice, as do the streaming export
-(``stitch_to_file(stream=True | "auto")``) and ``merge_overlap``.
+A big job (7 or more images, or 25 MB of files; or ``overlap="always"``)
+is laid out from image headers and runs on ``pipeline.run_overlapped``,
+each source drawn as its decode lands; a pure-copy plan pastes on the host
+instead.  ``stitch_to_file`` streams the canvas band by band into the
+native encoder.  ``merge_overlap`` arrives with the extensions slice and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -239,6 +244,53 @@ def stitch_arrays(images: Sequence[np.ndarray],
     return out
 
 
+def _probe_item(item: ImageInput) -> Optional[ImageSpec]:
+    """Header-only ImageSpec for an input, or None if probing can't work."""
+    try:
+        if isinstance(item, tuple):
+            arr, orientation = item
+            shape = (arr.shape if isinstance(arr, torch.Tensor)
+                     else np.asarray(arr).shape)
+            return ImageSpec(shape[1], shape[0], int(orientation))
+        if isinstance(item, (np.ndarray, torch.Tensor)):
+            return ImageSpec(item.shape[1], item.shape[0], 1)
+        if isinstance(item, (str, os.PathLike, bytes)):
+            info = codec.get_image_info(item)
+            return ImageSpec(info.raw_w, info.raw_h, info.orientation)
+    except Exception:
+        return None
+    return None
+
+
+def _overlappable_array(item: ImageInput) -> bool:
+    """True when an array input can ride the overlapped executors, whose
+    channel count is 3.  RGBA qualifies (the loaders flatten it onto white,
+    yielding 3 channels); gray/LA arrays (1 channel after normalization)
+    take the prepare -> stitch_arrays path instead, which parameterizes
+    channels.  Non-array inputs always decode to RGB."""
+    arr = item[0] if isinstance(item, tuple) else item
+    if isinstance(arr, (np.ndarray, torch.Tensor)):
+        return arr.ndim == 3 and arr.shape[2] in (3, 4)
+    return True
+
+
+def _is_big_task(items: Sequence[ImageInput]) -> bool:
+    """Reference big-task thresholds: >=7 images or >=25 MB total
+    (pages/index/index.js:1211-1212)."""
+    if len(items) >= 7:
+        return True
+    total = 0
+    for it in items:
+        if isinstance(it, (str, os.PathLike)):
+            try:
+                total += os.path.getsize(os.fspath(it))
+            except OSError:
+                pass
+        elif isinstance(it, bytes):
+            total += len(it)
+    return total >= 25 * 1024 * 1024
+
+
 def stitch(items: Sequence[ImageInput],
            direction: str = "vertical", mode: str = "min", gap: float = 0.0,
            options: Optional[StitchOptions] = None,
@@ -250,10 +302,47 @@ def stitch(items: Sequence[ImageInput],
            keep_on_device: bool = False):
     """Stitch image files/bytes/arrays (or ``(array, orientation)`` tuples)
     into one strip; returns uint8 HWC.  ``options`` overrides the
-    individual direction/mode/gap arguments."""
+    individual direction/mode/gap arguments.
+
+    For big jobs (or ``config.overlap="always"``) decode, upload and device
+    compositing overlap: the layout is solved from image headers and each
+    image is placed the moment its decode lands.
+
+    With ``return_metrics=True`` returns ``(array, StitchMetrics)``.
+    """
     if options is None:
         options = StitchOptions(direction=direction, mode=mode, gap=gap)
     config = (config or RuntimeConfig()).validate()
+    if limits is None:
+        limits = config.limits          # explicit arg overrides the config
+
+    # merge_overlap needs every image's pixels before layout (the trims
+    # change the specs), so it always takes the decode-everything path
+    want_overlap = (not options.merge_overlap
+                    and all(_overlappable_array(it) for it in items)
+                    and (config.overlap == "always"
+                         or (config.overlap == "auto"
+                             and _is_big_task(items))))
+    if want_overlap and on_error == "raise" and config.engine != "oracle":
+        specs = [_probe_item(it) for it in items]
+        if all(s is not None for s in specs):
+            from .runtime import pipeline
+            plan = solve(specs, options, limits)
+            loaders = [(lambda it=it: _load_one(it, config)[0])
+                       for it in items]
+            copies = (None if keep_on_device
+                      else _blit_copies(plan, config))
+            if copies is not None:
+                out, metrics = _stitch_blit_overlapped(
+                    plan, loaders, config, progress, copies)
+                return (out, metrics) if return_metrics else out
+            out, metrics = pipeline.run_overlapped(
+                plan, loaders, config, progress,
+                keep_on_device=keep_on_device)
+            return (out, metrics) if return_metrics else out
+        # unprobeable input (needs transcode to even read the header):
+        # fall through to the plain flow
+
     t0 = time.perf_counter()
     images, specs, failures = prepare(items, config, on_error, progress)
     prepare_s = time.perf_counter() - t0
@@ -274,28 +363,205 @@ def stitch(items: Sequence[ImageInput],
 def stitch_to_file(items: Sequence[ImageInput],
                    out_path: Union[str, os.PathLike],
                    quality: int = 95, png_compression: int = 6,
-                   stream: Union[bool, str] = False,
+                   stream: Union[bool, str] = "auto",
                    return_metrics: bool = False, **kwargs):
-    """Stitch and write the result (format from the extension; PNG default)
-    through the codec: readback, then ``codec.encode``.
+    """Stitch and write the result (format from extension; PNG default).
 
-    ``stream=True`` / ``"auto"`` (the JAX package's streaming export) raise
-    ``NotImplementedError`` until the port's export slice lands.
+    ``stream`` controls the export pipeline: ``"auto"`` (default) keeps the
+    canvas on the device and overlaps the banded readback with the
+    incremental native encode (PNG or JPEG by extension) whenever the
+    native codec is available and the canvas is RGB.  ``False`` forces the
+    monolithic readback-then-encode path; ``True`` requires streaming
+    (raises if the native codec is missing, the format has no streaming
+    encoder, or the canvas is not RGB).  Without the native codec
+    ``"auto"`` takes the monolithic encoder, and logs that once.
     """
-    if stream is not False:
-        if stream in (True, "auto"):
-            raise NotImplementedError(
-                "streaming export arrives with the port's export slice; "
-                "pass stream=False")
+    if stream not in (True, False, "auto"):
         raise ValueError(f"stream must be True/False/'auto', got {stream!r}")
     if "keep_on_device" in kwargs:
         raise TypeError("keep_on_device is managed by stitch_to_file; "
                         "use stitch()/stitch_arrays() for a device canvas")
-    out, metrics = stitch(items, return_metrics=True, **kwargs)
+    out_path = os.fspath(out_path)
+    ext = os.path.splitext(out_path)[1].lower().lstrip(".")
+    streamable = ext in ("png", "jpg", "jpeg", "")
+    native_ok = _native_available()
+    if stream == "auto" and streamable and not native_ok:
+        get_logger().once("export.native_missing_monolithic")
+    want_stream = stream is True or (stream == "auto" and streamable
+                                     and native_ok)
+    # the blit fast path plans from image HEADERS; merge_overlap trims are
+    # pixel-derived, so it must go through the full stitch() flow instead
+    opts = kwargs.get("options")
+    merge_on = bool(opts is not None
+                    and getattr(opts, "merge_overlap", False))
+    if want_stream and streamable and native_ok and not merge_on:
+        blit = _blit_stream_attempt(items, out_path, ext, quality,
+                                    png_compression, kwargs)
+        if blit is not None:
+            path, metrics = blit
+            return (path, metrics) if return_metrics else path
+    if want_stream:
+        if not streamable:
+            raise ValueError(
+                f"stream=True has no streaming encoder for {ext!r}")
+        out, metrics = stitch(items, return_metrics=True,
+                              keep_on_device=True, **kwargs)
+        path = out_path if ext else out_path + ".png"
+        if out.ndim == 3 and out.shape[2] == 3:
+            from .runtime import export
+            progress = kwargs.get("progress", _noop_progress)
+            if ext in ("jpg", "jpeg"):
+                phases = export.stream_to_jpeg(out, path, quality,
+                                               progress=progress)
+            else:
+                phases = export.stream_to_png(out, path, png_compression,
+                                              progress=progress)
+            metrics.readback_s += phases["readback_s"]
+            metrics.encode_s += phases["encode_s"]
+            metrics.export_s = phases["wall_s"]
+            metrics.total_s += phases["wall_s"]
+            return (path, metrics) if return_metrics else path
+        if stream is True:
+            raise ValueError("stream=True requires a 3-channel RGB canvas")
+        # auto + non-RGB canvas: monolithic encoder; count the readback
+        if isinstance(out, torch.Tensor):
+            t0 = time.perf_counter()
+            out = out.cpu().numpy()
+            metrics.readback_s += time.perf_counter() - t0
+            metrics.total_s += time.perf_counter() - t0
+    else:
+        out, metrics = stitch(items, return_metrics=True, **kwargs)
     t0 = time.perf_counter()
-    path = codec.encode(out_path, out, quality=quality,
+    path = codec.encode(out_path, np.asarray(out), quality=quality,
                         png_compression=png_compression)
-    metrics.encode_s = time.perf_counter() - t0
+    metrics.encode_s += time.perf_counter() - t0
     metrics.export_s = metrics.readback_s + metrics.encode_s
-    metrics.total_s += metrics.encode_s
+    metrics.total_s += time.perf_counter() - t0
     return (path, metrics) if return_metrics else path
+
+
+def _blit_copies(plan, config):
+    """``plan_copy_offsets`` gated by the blit-eligibility rule: engine
+    ``auto`` only (explicit engines pin the device path).  None -> use the
+    device pipeline.  There is no total-source-bytes cap: the decode pool's
+    ack window bounds resident decoded bytes at O(window) regardless of job
+    size (runtime/decoding.DecodePool)."""
+    if config.engine != "auto":
+        return None
+    from .core import geometry
+    return geometry.plan_copy_offsets(plan)
+
+
+def _stitch_blit_overlapped(plan, loaders, config, progress, copies):
+    """Overlapped stitch for pure-blit plans: paste each source into the
+    host canvas the moment its decode lands.  No device round trip -- the
+    decode pool IS the pipeline (placement row spans are disjoint, so
+    completion-order pasting is race-free)."""
+    from .core import geometry
+    from .runtime.pipeline import StitchMetrics
+
+    t0 = time.perf_counter()
+    m = StitchMetrics(strategy="host-blit", canvas_w=plan.canvas_w,
+                      canvas_h=plan.canvas_h)
+    canvas = np.empty((plan.canvas_h, plan.canvas_w, 3), np.uint8)
+    geometry.fill_uncovered(canvas, plan, copies, plan.background[:3])
+    n = len(loaders)
+    done = 0
+    # paste-on-arrival consumes in ANY order, so the ack window (acked
+    # right after each paste) only bounds decode pile-up ahead of the
+    # pasting loop -- ordering is irrelevant here, unlike the band streamer
+    gen = decoding.iter_decoded(
+        loaders, config.decode_threads, config.decode_timeout_s,
+        window=config.decode_window
+        or decoding.default_window(config.decode_threads, n))
+    try:
+        for i, raw, err in gen:
+            if err is not None:
+                get_logger().event("pipeline.overlapped_decode_fail",
+                                   index=i, error=repr(err))
+                raise err
+            p = plan.placements[i]
+            raw = geometry.normalize_rgb(raw)
+            if raw is None or raw.shape[:2] != (p.raw_h, p.raw_w):
+                raise ValueError(
+                    f"image {i}: decoded "
+                    f"{None if raw is None else raw.shape} but header said "
+                    f"{p.raw_w}x{p.raw_h}x3")
+            if i in copies:
+                geometry.paste_blit(
+                    canvas, p, geometry.orient_array(raw, p.orientation),
+                    copies[i])
+            gen.ack()                   # pasted (or skipped): slot freed
+            done += 1
+            progress("composite", 0.30 + 0.60 * done / n)
+    finally:
+        # a decode error / shape mismatch must cancel the pool promptly --
+        # abandoned, its daemon workers keep decoding queued images and
+        # busy-poll the permit semaphore until a gc pass finds the
+        # self-referential generator (as in pipeline._run_overlapped_body)
+        gen.close()
+    m.prepare_s = time.perf_counter() - t0
+    m.total_s = time.perf_counter() - t0
+    get_logger().event("pipeline.done", strategy=m.strategy,
+                       total_s=round(m.total_s, 4),
+                       mp_per_sec=round(m.mp_per_sec, 1))
+    progress("composite", 1.0)
+    return canvas, m
+
+
+def _blit_stream_attempt(items, out_path: str, ext: str, quality: int,
+                         png_compression: int, kwargs: dict):
+    """Zero-device-round-trip streamed export for pure-blit plans.
+
+    When header probing succeeds and every drawn placement is an identity
+    copy (:func:`core.geometry.plan_copy_offsets` -- equal-size concat, the
+    reference's own hot path, index.js:1423-1431), the canvas never needs
+    to exist on either side of the PCIe link: bands are assembled from the
+    decoded sources and streamed to the encoder.  Returns
+    ``(path, StitchMetrics)`` or None when the conditions don't hold (the
+    caller then runs the device pipeline).
+    """
+    from .runtime import export
+    from .runtime.pipeline import StitchMetrics
+
+    if not items or kwargs.get("on_error", "raise") != "raise":
+        return None                     # empty input: canonical error path
+    config = (kwargs.get("config") or RuntimeConfig()).validate()
+    if config.overlap == "never":
+        return None                     # user disabled pipelined execution
+    if not all(_overlappable_array(it) for it in items):
+        return None                     # gray/LA arrays: plain path
+    options = kwargs.get("options") or StitchOptions(
+        direction=kwargs.get("direction", "vertical"),
+        mode=kwargs.get("mode", "min"),
+        gap=kwargs.get("gap", 0.0))
+    specs = [_probe_item(it) for it in items]
+    if any(s is None for s in specs):
+        return None
+    lim = kwargs.get("limits")
+    plan = solve(specs, options, config.limits if lim is None else lim)
+    copies = _blit_copies(plan, config)
+    if copies is None:
+        return None
+    loaders = [(lambda it=it: _load_one(it, config)[0]) for it in items]
+    path = out_path if ext else out_path + ".png"
+    fmt = "jpeg" if ext in ("jpg", "jpeg") else "png"
+    param = quality if fmt == "jpeg" else png_compression
+    progress = kwargs.get("progress", _noop_progress)
+    get_logger().event("stitch.blit_stream", n=len(items),
+                       canvas=(plan.canvas_w, plan.canvas_h), fmt=fmt)
+    phases = export.stream_blit_to_file(
+        plan, loaders, path, fmt, param, copies,
+        config.decode_threads, config.decode_timeout_s, progress,
+        window=config.decode_window)
+    metrics = StitchMetrics(
+        strategy="host-blit-stream",
+        canvas_w=plan.canvas_w, canvas_h=plan.canvas_h,
+        prepare_s=phases["decode_s"], encode_s=phases["encode_s"],
+        export_s=phases["wall_s"], total_s=phases["wall_s"])
+    return path, metrics
+
+
+def _native_available() -> bool:
+    from .imgio import native
+    return native.available()

@@ -8,9 +8,11 @@ The user-facing options and the limits -- ``StitchOptions``,
 ``MemoryBudget.from_device`` probed the TPU and is left behind: the port's
 twin is :func:`budget_from_device`.
 
-``RuntimeConfig`` is the port's own (twin of :159-203) and carries only
-what the port implements.  The JAX package's ``interpret``, ``profile``,
-``overlap`` and ``mesh`` arrive with the slices that implement them.
+``RuntimeConfig`` is the port's own (twin of :159-203): it has the JAX
+package's ``profile``, ``decode_window`` and ``overlap`` with their
+validation, and a ``device`` in place of JAX's implicit platform.  The
+JAX package's ``interpret`` (Pallas interpret mode) has no twin, and
+``mesh`` arrives with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -151,9 +153,20 @@ class RuntimeConfig:
     # Default canvas caps for entry points without an explicit ``limits=``.
     limits: CanvasLimits = dataclasses.field(default_factory=CanvasLimits)
     budget: MemoryBudget = dataclasses.field(default_factory=MemoryBudget)
+    # torch.profiler over each job; the trace goes under
+    # $IMAGESTITCH_TRACE_DIR (default: <tempdir>/imagestitching_trace)
+    profile: bool = False
     decode_threads: int = 8            # host codec pool
     # Per-image decode watchdog; None disables it.
     decode_timeout_s: Optional[float] = 30.0
+    # Ack-window backpressure of the host-blit paths: the most decoded
+    # sources in flight or held unconsumed at once; None -> auto (twice the
+    # decode workers, floor 4; runtime/decoding.default_window).
+    decode_window: Optional[int] = None
+    # decode || upload || compute: "auto" for big jobs (7 or more images or
+    # 25 MB of input, the reference's big-task thresholds), "always" or
+    # "never".
+    overlap: str = "auto"
 
     def validate(self) -> "RuntimeConfig":
         if self.engine not in ENGINES:
@@ -166,17 +179,29 @@ class RuntimeConfig:
         if self.engine == "cuda" and kind != "cuda":
             raise ValueError("engine='cuda' launches the CUDA kernel and "
                              "needs a CUDA device")
+        if self.overlap not in ("auto", "always", "never"):
+            raise ValueError(f"overlap must be auto/always/never, "
+                             f"got {self.overlap!r}")
         if self.decode_timeout_s is not None and self.decode_timeout_s <= 0:
             raise ValueError("decode_timeout_s must be positive or None, "
                              f"got {self.decode_timeout_s}")
+        if self.decode_window is not None and self.decode_window < 1:
+            raise ValueError("decode_window must be >= 1 or None, "
+                             f"got {self.decode_window}")
         return self
 
 
 def budget_from_device(device: str = "cuda") -> MemoryBudget:
     """A ``MemoryBudget`` of 0.6 of the card's total memory (twin of
     ``MemoryBudget.from_device``'s default), from
-    ``torch.cuda.mem_get_info``."""
+    ``torch.cuda.mem_get_info``.  A CPU device has no card to probe and gets
+    the default budget, as ``from_device`` does where it finds no device."""
     import torch
 
-    _, total = torch.cuda.mem_get_info(torch.device(device))
+    from .runtime.pipeline import resolve_device
+
+    device = resolve_device(device)     # a missing card raises RuntimeError
+    if device.type == "cpu":
+        return MemoryBudget()
+    _, total = torch.cuda.mem_get_info(device)
     return MemoryBudget(hbm_bytes=int(total * 0.6))

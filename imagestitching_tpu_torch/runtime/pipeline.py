@@ -7,7 +7,10 @@ Port of ``imagestitching_tpu/runtime/pipeline.py``: ``StitchMetrics``
 classifier ``_is_oom`` (:773-787), the demotion ladder (``_banded_bands``
 :790-804, ``_strategy_ladder`` :807-824), the front door ``run`` (:851-915)
 with the single-device ladder of ``_run_body`` (:1009-1055), and the
-device-free host-blit path ``_host_blit`` (:917-939).
+device-free host-blit path ``_host_blit`` (:917-939), and the overlapped
+scheduler ``run_overlapped`` (:512-557, :579-749) with its transport probe
+``_transport_rtt`` (:565-576) and the profiler switch ``_Profile``
+(:493-509).
 
 The tiler's ``plan_execution`` picks the first rung from the memory
 budget: ``resident`` (every source and the canvas on the device), then
@@ -16,11 +19,20 @@ on the host, the device holding one source window and one region at a
 time).  A rung that runs out of device memory hands the job to the next one.
 The engine (``auto``/``cuda``: the kernels; ``torch``: the plain version)
 is the same on every rung; nothing demotes from one engine to the other.
+
+:func:`run_overlapped` is the file path's scheduler: the plan is solved from
+image headers, and each source is uploaded and drawn the moment its decode
+lands (decode || upload || compute), through the same placement step as the
+resident and streamed rungs; an OOM demotes it to the banded rung.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import os
+import tempfile
 import time
 import traceback
 from typing import (Callable, List, NamedTuple, Optional, Sequence,
@@ -47,10 +59,20 @@ Result = Tuple[Union[np.ndarray, torch.Tensor], int]
 @dataclasses.dataclass
 class StitchMetrics:
     """Per-phase wall clock + throughput for one job (the JAX package's
-    field set; ``transport_rtt_s`` and ``stage_wait_*`` belong to the
-    overlapped path and stay 0 until it lands).  ``h2d_bytes`` counts what
-    the winning rung staged onto the job's device: the sources on the
-    resident and streamed rungs, the source windows on the banded one."""
+    field set).  ``h2d_bytes`` counts what the winning rung staged onto the
+    job's device: the sources on the resident, streamed and overlapped
+    paths, the source windows on the banded one.
+
+    The overlapped path (:func:`run_overlapped`) also fills
+    ``transport_rtt_s``, a one-byte device-to-host read on the idle device
+    (the drain in ``compute_s`` pays one), and ``stage_wait_s`` /
+    ``stage_wait_max_s``, the host time blocked in the per-source staging
+    calls (a wait for a free pinned slot, the copy into it, the enqueues and
+    the staged-bytes fence): near 0 with a large ``compute_s`` means the
+    card drains work after the last decode; large means the uploads hold
+    the host back, and the maximum tells one slow source from a slow link.
+    There ``prepare_s`` is the decode wall and ``compute_s`` the drain
+    exposed after the last decode."""
 
     strategy: str = "resident"
     prepare_s: float = 0.0
@@ -417,21 +439,27 @@ def run(plan: LayoutPlan, images: Sequence[np.ndarray],
 
     t0 = time.perf_counter()
     out, last_oom = None, None
-    for strategy, band in _strategy_ladder(ex, plan):
-        try:
-            out, m.h2d_bytes = _run_rung(strategy, band, plan, images,
-                                         channels, config, device, progress)
-        except Exception as e:  # noqa: BLE001 — OOM classification
-            if not _is_oom(e):
-                raise
-            # The traceback holds the failed rung's frames and with them its
-            # sources and canvas: drop them before the next rung allocates.
-            traceback.clear_frames(e.__traceback__)
-            last_oom = e
-            log.event("pipeline.oom_retry", failed=strategy, band=band)
-            continue
-        m.strategy = strategy
-        break
+    prof = _Profile(config.profile, device)
+    try:
+        for strategy, band in _strategy_ladder(ex, plan):
+            try:
+                out, m.h2d_bytes = _run_rung(strategy, band, plan, images,
+                                             channels, config, device,
+                                             progress)
+            except Exception as e:  # noqa: BLE001 — OOM classification
+                if not _is_oom(e):
+                    raise
+                # The traceback holds the failed rung's frames and with them
+                # its sources and canvas: drop them before the next rung
+                # allocates.
+                traceback.clear_frames(e.__traceback__)
+                last_oom = e
+                log.event("pipeline.oom_retry", failed=strategy, band=band)
+                continue
+            m.strategy = strategy
+            break
+    finally:
+        prof.stop()
     if out is None:
         raise MemoryError(
             "stitch ran out of device memory on every strategy") from last_oom
@@ -470,3 +498,358 @@ def _host_blit(plan, images, copies) -> Optional[np.ndarray]:
                                                  p.orientation),
                 copies[p.index])
     return canvas
+
+
+# ---------------------------------------------------------------------------
+# Overlapped execution: decode || upload || compute
+# ---------------------------------------------------------------------------
+
+class _Profile:
+    """``torch.profiler`` over one job when ``enabled`` (twin of the JAX
+    package's ``jax.profiler`` trace): ``stop()`` ends it and writes a
+    Chrome trace under ``$IMAGESTITCH_TRACE_DIR`` (default
+    ``<tempdir>/imagestitching_trace``).  It is idempotent and must run on
+    every exit path, or the profiler stays started and the next profiled
+    job fails."""
+
+    def __init__(self, enabled: bool, device: torch.device):
+        self._prof = None
+        if enabled:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+
+    def stop(self) -> None:
+        if self._prof is None:
+            return
+        prof, self._prof = self._prof, None
+        prof.__exit__(None, None, None)
+        trace_dir = os.environ.get(
+            "IMAGESTITCH_TRACE_DIR",
+            os.path.join(tempfile.gettempdir(), "imagestitching_trace"))
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir,
+                            f"stitch-{os.getpid()}-{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        get_logger().event("pipeline.profile", trace=path)
+
+
+class _Stager:
+    """The overlapped body's uploads: a ring of host slots, a copy stream
+    and the staged-bytes fence.
+
+    :meth:`upload` copies a decoded source into the next free slot, then
+    copies the slot to a new device tensor.  On a CUDA device the slots are
+    pinned (``torch.empty(pin_memory=True)``, which the caching host
+    allocator keeps for the next job) and the upload runs non-blocking on a
+    copy stream of its own: the device tensor is allocated there, an event
+    marks the end of the copy, the caller's (compute) stream waits on that
+    event, and ``record_stream`` keeps the tensor's memory from a later
+    allocation until the compute stream is done with it.  A slot is written
+    again only after its last upload's event, so the host copy of a source
+    can go as soon as :meth:`upload` returns.  :meth:`drawn` is the fence:
+    once the bytes of sources whose draws are still queued pass ``limit``,
+    it waits for the oldest draw.  On the CPU the same steps run with plain
+    buffers and no streams or events."""
+
+    def __init__(self, device: torch.device, slot_bytes: int, n_slots: int,
+                 limit: int):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.slots = [torch.empty(slot_bytes, dtype=torch.uint8,
+                                  pin_memory=self.cuda)
+                      for _ in range(n_slots)]
+        self.slot_done: List[Optional[torch.cuda.Event]] = [None] * n_slots
+        self.next = 0
+        self.copy_stream = torch.cuda.Stream(device) if self.cuda else None
+        self.limit = limit
+        self.queued: collections.deque = collections.deque()
+        self.queued_bytes = 0
+
+    def upload(self, raw: np.ndarray) -> torch.Tensor:
+        """``raw`` (contiguous uint8 HWC) as a tensor on the device, ready
+        for work enqueued on the current stream."""
+        k, self.next = self.next, (self.next + 1) % len(self.slots)
+        if self.slot_done[k] is not None:
+            self.slot_done[k].synchronize()   # its last upload has landed
+        host = self.slots[k][:raw.nbytes].view(raw.shape)
+        np.copyto(host.numpy(), raw)
+        if not self.cuda:
+            src = torch.empty(raw.shape, dtype=torch.uint8)
+            src.copy_(host)
+            return src
+        with torch.cuda.stream(self.copy_stream):
+            src = torch.empty(raw.shape, dtype=torch.uint8,
+                              device=self.device)
+            src.copy_(host, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.copy_stream)
+        self.slot_done[k] = done
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(done)
+        src.record_stream(compute)
+        return src
+
+    def drawn(self, nbytes: int) -> None:
+        """A source of ``nbytes`` has its draw enqueued on the current
+        stream."""
+        ev = None
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+        self.queued.append((ev, nbytes))
+        self.queued_bytes += nbytes
+        while self.queued_bytes > self.limit and self.queued:
+            ev, n = self.queued.popleft()
+            if ev is not None:
+                ev.synchronize()
+            self.queued_bytes -= n
+
+
+def run_overlapped(plan: LayoutPlan, loaders, config: RuntimeConfig,
+                   progress: ProgressFn = _noop,
+                   keep_on_device: bool = False,
+                   ) -> Tuple[Union[np.ndarray, torch.Tensor], StitchMetrics]:
+    """Composite that overlaps host decode with the upload and the draw.
+
+    ``loaders[i]()`` returns image i's raw uint8 HWC RGB array (decode +
+    normalize).  The layout is already solved from header metadata, so
+    compositing starts when the FIRST decode lands, not the last.
+    Placements are independent, so sources are drawn in completion order,
+    each through :func:`..ops.cuda_resize.draw_placement` (kernel #1 for a
+    resampled placement) into a canvas on ``config.device``; each host copy
+    is dropped once its source is staged.
+
+    The tiler plans up front.  A banded plan, or an OOM at the canvas, in
+    the loop or at the drain, demotes to the banded rung (kernel #3) on the
+    host copies, re-decoding the ones already dropped; the strategy is then
+    ``"overlapped/banded"``.
+
+    Raises on any decode failure (including the watchdog's TimeoutError):
+    by stitch time geometry is committed, the reference aborts there too
+    (index.js:1507-1509).  Returns ``(canvas, metrics)``; with
+    ``keep_on_device=True`` the canvas stays a tensor where the card holds
+    it.
+    """
+    config = config.validate()
+    log = get_logger()
+    m = StitchMetrics(canvas_w=plan.canvas_w, canvas_h=plan.canvas_h,
+                      strategy="overlapped")
+    t_start = time.perf_counter()
+    channels = 3
+    device = resolve_device(config.device)
+
+    ex = tiler.plan_execution(plan, config.budget, channels)
+    m.est_peak_bytes = ex.est_peak_bytes
+    log.event("pipeline.plan", strategy=f"overlapped/{ex.strategy}",
+              est_peak_mb=round(ex.est_peak_bytes / 1e6, 1),
+              budget_mb=round(ex.budget_bytes / 1e6, 1),
+              canvas=(plan.canvas_w, plan.canvas_h))
+
+    prof = _Profile(config.profile, device)
+    try:
+        with (torch.cuda.device(device) if device.type == "cuda"
+              else contextlib.nullcontext()):
+            return _run_overlapped_body(plan, loaders, config, progress, m,
+                                        ex, log, t_start, channels, device,
+                                        keep_on_device)
+    finally:
+        prof.stop()
+
+
+# Per-process cache of the idle-device transport probe: the round trip is a
+# property of the host and the card, not of a job, so steady-state serving
+# pays a probe at most once per TTL.  A probe taken while the card is busy
+# overcounts (it queues behind the work): acceptable for an attribution
+# metric.
+_RTT_TTL_S = 300.0
+_rtt_cache: dict = {}
+
+
+def _transport_rtt(device: torch.device) -> float:
+    """Seconds of a one-byte device-to-host read after a synchronise."""
+    now = time.monotonic()
+    at, rtt = _rtt_cache.get(device, (float("-inf"), 0.0))
+    if now - at > _RTT_TTL_S:
+        probe = torch.zeros(1, dtype=torch.uint8, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        probe.cpu()
+        rtt = time.perf_counter() - t0
+        _rtt_cache[device] = (now, rtt)
+    return rtt
+
+
+def _drain(device: torch.device) -> None:
+    """Wait for the work queued on the device's current stream."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+def _run_overlapped_body(plan, loaders, config, progress, m, ex, log,
+                         t_start, channels, device, keep_on_device):
+    from . import decoding
+
+    n = len(loaders)
+
+    def _checked(i: int, raw: np.ndarray) -> np.ndarray:
+        p = plan.placements[i]
+        if raw.shape[:2] != (p.raw_h, p.raw_w):
+            raise ValueError(
+                f"image {i}: decoded {raw.shape[1]}x{raw.shape[0]} but "
+                f"header said {p.raw_w}x{p.raw_h}")
+        return raw
+
+    # Host copies are kept only until a source is staged (or for the banded
+    # path, which needs them); an OOM retry re-decodes the dropped ones
+    # instead of holding GBs of raw arrays for the whole job.
+    decoded: List[Optional[np.ndarray]] = [None] * n
+    composited = [False] * n
+    canvas = steps = stager = None
+    oom = None
+    if ex.strategy in ("resident", "streamed"):
+        drawn = [p for p in plan.placements
+                 if p.row_span[1] > p.row_span[0]
+                 and p.col_span[1] > p.col_span[0]]
+        try:
+            canvas = new_canvas(plan, channels, device)
+            steps = cuda_resize.plan_steps(plan, device)
+            stager = _Stager(
+                device, max((p.raw_h * p.raw_w * channels for p in drawn),
+                            default=1), max(1, min(3, len(drawn))),
+                _fence_limit(plan, channels, config))
+        except Exception as e:  # noqa: BLE001 — OOM classification
+            if not _is_oom(e):
+                raise
+            oom = e   # the canvas does not fit: decode, keep, go banded
+            canvas = steps = stager = None
+            log.event("pipeline.oom_retry", failed="overlapped-alloc",
+                      band=None)
+    plain = config.engine == "torch"
+
+    gen = decoding.iter_decoded(loaders, config.decode_threads,
+                                config.decode_timeout_s)
+    done = 0
+    t_decode = 0.0
+    try:
+        if canvas is not None:
+            # the round trip this job pays once inside compute_s at the
+            # drain; probed after the decode pool starts, so it runs under
+            # the first decode
+            m.transport_rtt_s = _transport_rtt(device)
+        for i, raw, err in gen:
+            if err is not None:
+                log.event("pipeline.overlapped_decode_fail", index=i,
+                          error=repr(err))
+                raise err
+            raw = _checked(i, np.asarray(raw))
+            decoded[i] = raw
+            t_decode = max(t_decode, time.perf_counter() - t_start)
+            p = plan.placements[i]
+            if canvas is not None and steps[i] is not None:
+                try:
+                    t_stage = time.perf_counter()
+                    src = stager.upload(np.ascontiguousarray(
+                        source_array(raw, p, channels)))
+                    cuda_resize.draw_placement(src, p, steps[i], canvas,
+                                               plain)
+                    del src
+                    stager.drawn(raw.nbytes)
+                    t_stage = time.perf_counter() - t_stage
+                    m.stage_wait_s += t_stage
+                    m.stage_wait_max_s = max(m.stage_wait_max_s, t_stage)
+                    m.h2d_bytes += raw.nbytes
+                    composited[i] = True
+                    decoded[i] = None   # staged: drop the host copy
+                except Exception as e:  # noqa: BLE001 — OOM classify
+                    if not _is_oom(e):
+                        raise
+                    oom = e
+                    canvas = steps = stager = src = None
+                    log.event("pipeline.oom_retry", failed="overlapped",
+                              band=None)
+            done += 1
+            progress("composite", 0.30 + 0.60 * done / n)
+    finally:
+        # an error anywhere above (probe, decode, composite) must not leave
+        # the eagerly-started workers decoding the rest of the job
+        gen.close()
+    m.prepare_s = t_decode
+
+    t_drain = time.perf_counter()
+    out = None
+    if canvas is not None:
+        # compute_s = the device drain exposed after the last decode (work
+        # that ran under decode cost no wall time)
+        try:
+            _drain(device)
+            m.compute_s = time.perf_counter() - t_drain
+            if keep_on_device:
+                out = canvas   # the caller streams the readback
+            else:
+                t0 = time.perf_counter()
+                out = canvas.cpu().numpy()
+                m.readback_s = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — OOM classification
+            if not _is_oom(e):
+                raise
+            oom = e
+            log.event("pipeline.oom_retry", failed="overlapped-drain",
+                      band=None)
+    if out is None:
+        # free the device canvas, the taps and the pinned ring, and the
+        # failed attempt's frames, before the banded rung allocates
+        canvas = steps = stager = None
+        if oom is not None:
+            traceback.clear_frames(oom.__traceback__)
+        missing = [i for i in range(n) if decoded[i] is None
+                   and composited[i]]
+        if missing:
+            log.event("pipeline.oom_redecode", n=len(missing))
+            gen2 = decoding.iter_decoded(
+                [loaders[j] for j in missing], config.decode_threads,
+                config.decode_timeout_s)
+            try:
+                for k, raw2, err2 in gen2:
+                    if err2 is not None:
+                        raise err2
+                    decoded[missing[k]] = _checked(missing[k],
+                                                   np.asarray(raw2))
+            finally:
+                gen2.close()   # a failed re-decode must cancel the workers
+        for band in _banded_bands(ex, plan):
+            try:
+                out, m.h2d_bytes = _run_banded(plan, decoded, channels, band,
+                                               config.engine, device,
+                                               progress)
+                break
+            except Exception as e:  # noqa: BLE001 — OOM classification
+                if not _is_oom(e):
+                    raise
+                traceback.clear_frames(e.__traceback__)
+                oom = e
+                log.event("pipeline.oom_retry", failed="banded", band=band)
+        if out is None:
+            raise MemoryError(
+                "overlapped stitch ran out of device memory on every "
+                "strategy") from oom
+        m.strategy = "overlapped/banded"
+        m.compute_s = time.perf_counter() - t_drain
+    m.total_s = time.perf_counter() - t_start
+    log.event("pipeline.overlapped_done", n=n, strategy=m.strategy,
+              total_s=round(m.total_s, 4),
+              decode_wall_s=round(m.prepare_s, 4),
+              compute_s=round(m.compute_s, 4),
+              transport_rtt_s=round(m.transport_rtt_s, 4),
+              stage_wait_s=round(m.stage_wait_s, 4),
+              stage_wait_max_s=round(m.stage_wait_max_s, 4),
+              h2d_mb=round(m.h2d_bytes / 1e6, 1),
+              readback_s=round(m.readback_s, 4),
+              mp_per_sec=round(m.mp_per_sec, 1))
+    progress("composite", 1.0)
+    return out, m

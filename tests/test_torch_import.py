@@ -4,8 +4,9 @@
 The test process itself has JAX loaded (tests/conftest.py imports it), so
 the import checks run in fresh subprocesses: once as they are, and once
 more with a ``sys.meta_path`` finder that makes ``imagestitching_tpu``
-unimportable, so the port's entry points are shown to run on its own copies
-of the host layers.  An AST walk over every module of the port and over
+unimportable, so the port's entry points (the CPU stitch, the ladder, the
+server, ``serve.http --help``, the CLI's ``--help`` and a CPU CLI job) are
+shown to run on its own copies of the host layers.  An AST walk over every module of the port and over
 ``chip_smoke.py`` finds no import of ``jax`` or ``imagestitching_tpu``.
 """
 
@@ -82,10 +83,35 @@ assert "jax" not in sys.modules, sorted(
 """
 
 
+_CPU_CLI = """
+import os
+import sys
+import tempfile
+import numpy as np
+from PIL import Image
+from imagestitching_tpu_torch import cli
+rng = np.random.default_rng(2)
+with tempfile.TemporaryDirectory() as td:
+    paths = []
+    for i in range(7):
+        paths.append(os.path.join(td, f"{i}.png"))
+        Image.fromarray(rng.integers(0, 256, (20 + i, 30 + 2 * i, 3),
+                                     np.uint8)).save(paths[-1])
+    out = os.path.join(td, "out.png")
+    assert cli.main([*paths, "-o", out, "--device", "cpu", "--gap", "2",
+                     "--json", "--metrics"]) == 0
+    assert os.path.getsize(out) > 0
+import torch
+assert not torch.cuda.is_initialized()
+assert "jax" not in sys.modules, sorted(
+    m for m in sys.modules if m.split(".")[0] == "jax")
+"""
+
+
 @pytest.mark.parametrize("script", [_IMPORT_ONLY, _CPU_STITCH,
-                                    _CPU_LADDER, _SERVE_IMPORT],
+                                    _CPU_LADDER, _SERVE_IMPORT, _CPU_CLI],
                          ids=["import", "cpu-stitch", "cpu-ladder",
-                              "serve-import"])
+                              "serve-import", "cpu-cli"])
 def test_port_never_loads_jax(script):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=_ROOT,
@@ -116,11 +142,21 @@ import runpy
 runpy.run_module("imagestitching_tpu_torch.serve.http", run_name="__main__")
 """
 
+_CLI_HELP = """
+import runpy
+runpy.run_module("imagestitching_tpu_torch.cli", run_name="__main__")
+"""
+
+# what ``--help`` of each module must print
+_HELP_NEEDLE = {_SERVE_HELP: "--max-batch", _CLI_HELP: "--device"}
+
 
 @pytest.mark.parametrize("script,argv", [
     (_IMPORT_ONLY, []), (_CPU_STITCH, []), (_CPU_LADDER, []),
-    (_SERVE_IMPORT, []), (_SERVE_HELP, ["--help"])],
-    ids=["import", "cpu-stitch", "cpu-ladder", "serve-import", "serve-help"])
+    (_SERVE_IMPORT, []), (_SERVE_HELP, ["--help"]), (_CLI_HELP, ["--help"]),
+    (_CPU_CLI, [])],
+    ids=["import", "cpu-stitch", "cpu-ladder", "serve-import", "serve-help",
+         "cli-help", "cpu-cli"])
 def test_port_runs_without_the_jax_package(script, argv):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     check = ("\nassert not [m for m in sys.modules if m == "
@@ -130,7 +166,7 @@ def test_port_runs_without_the_jax_package(script, argv):
         cwd=_ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     if argv:
-        assert "--max-batch" in proc.stdout
+        assert _HELP_NEEDLE[script] in proc.stdout
 
 
 def _sources():
@@ -177,6 +213,15 @@ def test_kernel_source_is_in_the_package():
     assert 'extern "C"' in src and "int resize_place_launch(" in src
     assert "int resize_place_batch_launch(" in src
     assert "int resize_place_window_launch(" in src
+
+
+def test_cli_module_runs_with_help():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "imagestitching_tpu_torch.cli", "--help"],
+        cwd=_ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "--device" in proc.stdout and "--overlap" in proc.stdout
 
 
 def test_server_module_runs_with_help():

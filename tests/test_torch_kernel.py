@@ -282,3 +282,131 @@ def test_broken_build_fails_a_banded_job(card, monkeypatch):
     with pytest.raises(RuntimeError, match="synthetic"):
         pipeline.run(plan, imgs, RuntimeConfig(device=str(card),
                                                budget=budget))
+
+
+@pytest.mark.parametrize("name,strategy", [
+    ("bilinear-up", "resident"), ("orient6", "resident"),
+    ("lanczos3-down", "resident"), ("edge-odd-c0", "resident"),
+    ("bilinear-12x-transposed", "resident"), ("orient7", "streamed"),
+    ("bilinear-up", "banded"), ("box-down", "banded")])
+def test_overlapped_equals_never_on_card(card, name, strategy):
+    """The overlapped scheduler on the card (pinned ring, copy stream, the
+    compute stream waiting on each upload) equals the non-overlapped job bit
+    for bit; it launches kernel #1 once per resampled placement, or on a
+    banded plan kernel #3 once per chunk."""
+    plan, imgs = _job(name)
+    budget = MemoryBudget()
+    if strategy == "streamed":
+        budget = MemoryBudget(hbm_bytes=tiler.resident_peak_bytes(plan) - 1)
+    elif strategy == "banded":
+        budget = MemoryBudget(hbm_bytes=max(
+            3 * plan.canvas_w * plan.canvas_h // 2,
+            tiler.min_feasible_bytes(plan)))
+    ex = tiler.plan_execution(plan, budget)
+    assert ex.strategy == strategy
+    cfg = RuntimeConfig(device=str(card), budget=budget)
+    want, _ = pipeline.run(plan, imgs, cfg)
+    before = (cuda_resize.launches, cuda_resize.window_launches)
+    got, m = pipeline.run_overlapped(plan, [(lambda a=a: a) for a in imgs],
+                                     cfg)
+    launched = (cuda_resize.launches - before[0],
+                cuda_resize.window_launches - before[1])
+    np.testing.assert_array_equal(got, want)
+    resampled = [p for p in plan.placements
+                 if geometry.placement_copy_offsets(p, plan.filter) is None]
+    if strategy == "banded":
+        assert m.strategy == "overlapped/banded"
+        assert launched == (0, sum(
+            WindowPlan(p, plan.filter, ex.band_rows).n_chunks
+            for p in resampled))
+    else:
+        assert m.strategy == "overlapped"
+        assert launched == (len(resampled), 0)
+        assert m.h2d_bytes == sum(a.nbytes for a in imgs)
+
+
+def test_overlapped_stager_reuses_its_slots_on_card(card):
+    """Nine sources through a ring of two pinned slots, with a fence after
+    every draw: each source lands before its slot is written again."""
+    shapes = [(300 + 17 * i, 200 + 11 * i, 1 + i % 8) for i in range(9)]
+    plan = solve([ImageSpec(w, h, o) for w, h, o in shapes],
+                 StitchOptions(gap=2, max_images=None))
+    rng = np.random.default_rng(9)
+    imgs = [rng.integers(0, 256, (h, w, 3), np.uint8) for w, h, _ in shapes]
+    canvas = pipeline.new_canvas(plan, 3, card)
+    steps = cuda_resize.plan_steps(plan, card)
+    stager = pipeline._Stager(card, max(a.nbytes for a in imgs), 2, 0)
+    assert all(s.is_pinned() for s in stager.slots)
+    for raw, p, step in zip(imgs, plan.placements, steps):
+        src = stager.upload(np.ascontiguousarray(raw))
+        cuda_resize.draw_placement(src, p, step, canvas, False)
+        stager.drawn(raw.nbytes)
+    torch.cuda.synchronize(card)
+    want, _ = pipeline.run(plan, imgs, RuntimeConfig(device=str(card)))
+    np.testing.assert_array_equal(canvas.cpu().numpy(), want)
+
+
+class _SlowBands:
+    """A writer that sleeps in every write and keeps a copy of each band."""
+
+    def __init__(self, delay_s):
+        self.bands, self.delay_s, self.closed = [], delay_s, False
+
+    def write(self, band):
+        import time
+        time.sleep(self.delay_s)
+        self.bands.append(np.array(band, copy=True))
+
+    def close(self):
+        self.closed = True
+
+
+@pytest.mark.parametrize("h,band,depth,delay", [
+    (1000, 96, 3, 0.0), (1000, 96, 2, 0.01), (257, 300, 3, 0.0),
+    (4099, 512, 3, 0.005)])
+def test_stream_device_reads_back_a_card_canvas(card, h, band, depth, delay):
+    """``_stream_device`` on a CUDA tensor: the bands, read into pinned
+    buffers on their own stream behind the kernels that drew the canvas,
+    join to ``canvas.cpu()``; a writer slower than the copies never sees a
+    band before its copy lands or after its buffer is reused."""
+    from imagestitching_tpu_torch.runtime import export
+
+    w = 700
+    g = torch.Generator(device=card).manual_seed(h)
+    canvas = torch.randint(0, 256, (h, w, 3), generator=g, dtype=torch.uint8,
+                           device=card)
+    # queue more work on the canvas's stream: the readback must wait for it
+    canvas.add_(1)
+    writer = _SlowBands(delay)
+    phases = {"readback_s": 0.0, "encode_s": 0.0}
+    export._stream_device(canvas, writer, h, w, 3, band, phases,
+                          lambda *a: None, depth=depth)
+    assert writer.closed and phases["readback_s"] > 0
+    np.testing.assert_array_equal(np.concatenate(writer.bands),
+                                  canvas.cpu().numpy())
+
+
+def test_stitch_to_file_streams_a_card_canvas(card, tmp_path):
+    """Nine sources through ``stitch_to_file``: the overlapped job's canvas
+    stays on the card and is streamed to PNG and JPEG, equal to the
+    monolithic files."""
+    from imagestitching_tpu_torch import api
+    from imagestitching_tpu_torch.imgio import codec, native
+
+    if not native.available():
+        pytest.skip("native codec unavailable")
+    plan, imgs = _job("orient6")
+    items = [(imgs[i % 2], plan.placements[i % 2].orientation)
+             for i in range(9)]
+    cfg = RuntimeConfig(device=str(card))
+    for ext in ("png", "jpg"):
+        p, m = api.stitch_to_file(items, tmp_path / f"s.{ext}", config=cfg,
+                                  return_metrics=True)
+        assert m.strategy == "overlapped" and m.readback_s > 0
+        q = api.stitch_to_file(items, tmp_path / f"m.{ext}", config=cfg,
+                               stream=False)
+        if ext == "png":
+            np.testing.assert_array_equal(codec.decode(p)[0],
+                                          codec.decode(q)[0])
+        else:
+            assert open(p, "rb").read() == open(q, "rb").read()

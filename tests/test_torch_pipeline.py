@@ -173,7 +173,7 @@ def test_stitch_metrics_fields_match_jax():
 
 
 @pytest.mark.parametrize("strategy", ["streamed", "banded"])
-def test_budget_beyond_resident_raises_not_implemented(strategy):
+def test_budget_below_resident_runs_tiler_strategy(strategy):
     """A budget below the resident peak runs the strategy the tiler picks,
     with nothing raising NotImplementedError: the canvas equals the resident
     one bit for bit, and the JAX package's same strategy (Pallas interpret)
@@ -216,11 +216,27 @@ def test_stitch_items_with_orientations_and_file_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("stream", [True, "auto"])
-def test_streaming_export_not_yet_ported(tmp_path, stream):
+def test_streaming_export_of_a_gray_canvas(tmp_path, stream):
+    """A 1-channel canvas has no streaming encoder: ``stream=True`` raises,
+    as the JAX package does, and ``"auto"`` writes the file through the
+    monolithic encoder, equal to the JAX package's file."""
     imgs, shapes, opts = _job("gray")
-    with pytest.raises(NotImplementedError):
-        api.stitch_to_file(imgs, tmp_path / "out.png", stream=stream,
-                           config=CPU)
+    out = tmp_path / "out.png"
+    if stream is True:
+        with pytest.raises(ValueError, match="3-channel"):
+            api.stitch_to_file(imgs, out, stream=True, config=CPU)
+        with pytest.raises(ValueError, match="3-channel"):
+            jax_api.stitch_to_file(imgs, tmp_path / "jax.png", stream=True)
+        assert not out.exists()
+        return
+    path = api.stitch_to_file(imgs, out, stream="auto", config=CPU)
+    jax_path = jax_api.stitch_to_file(imgs, tmp_path / "jax.png",
+                                      stream="auto")
+    got, want = codec.decode(path)[0], codec.decode(jax_path)[0]
+    canvas = api.stitch(imgs, config=CPU)
+    assert canvas.shape[2] == 1
+    np.testing.assert_array_equal(got, np.repeat(canvas, 3, axis=2))
+    assert _maxdiff(got, want) <= 1
 
 
 def test_cuda_device_without_cuda_raises():
