@@ -82,14 +82,33 @@ Phases, one line each; any failure exits non-zero and prints no result:
     encoder's;
 18. the CLI: ``python -m imagestitching_tpu_torch.cli`` in a subprocess on
     config 3 as JPEG files (``--json --metrics``), by default and with
-    ``--engine torch``, its PNG equal to phase 4's path on the same pixels.
+    ``--engine torch``, its PNG equal to phase 4's path on the same pixels;
+19. merge: five synthetic phone screenshots (1170 x 2532, consecutive ones
+    sharing 400 rows) through ``stitch(..., merge_overlap=True)`` on
+    ``cuda``: the float64 scores on the card within 1e-9 of
+    ``_scores_numpy`` on every pair, trims ``[0, 400, 400, 400, 400]`` equal
+    to the numpy scorer's, the merged canvas equal to the stitch of the
+    pre-trimmed screenshots and to the capture; one job through
+    ``StitchServer.submit``;
+20. the grid collage: config 4-EXIF's nine sources through
+    ``stitch_grid(cols=3, mode="min", gap=4)`` on ``cuda``, kernel #1's
+    launches counted per column, within 1 of each column's oracle around
+    every placement edge and exact on copy spans; ``valign="center"``
+    equal column by column;
+21. the preview: the config 4-EXIF canvas kept on the card,
+    ``make_preview(box_w=750)``: one launch of #1, equal to its plain
+    version bit for bit, within 1 of ``device=False``; CUDA-event and busy
+    times beside the plain version, one ``F.interpolate`` call and the
+    bound.
 
 Phases 4-15 pass ``overlap="never"``: they read the non-overlapped path,
 which 9-image jobs leave for the overlapped scheduler by default.  Each
 kernel's launch count is read from its own path: phase 4 for the single-job
 kernel, phase 9 for the batched one, phase 13's banded run for the windowed
-one, and phase 16 for #1 and #3 on the overlapped scheduler
-(``launches_overlapped``), each with the counts set to 0 just before.  The
+one, phase 16 for #1 and #3 on the overlapped scheduler
+(``launches_overlapped``), and phases 19, 20 and 21 for #1 on the merged
+stitch, the grid and the preview (``launches_merge``, ``launches_grid``,
+``launches_preview``), each with the counts set to 0 just before.  The
 last two lines are a JSON record of the kernels and the device line
 ``{"ok": true, "device": {...}}``.  Imports nothing of the JAX package.
 Before them the card's name and power limit, as ``nvidia-smi`` gives them.
@@ -1651,6 +1670,234 @@ def phase18_cli(dev, smi, td, items, opts3):
         + f" | {smi}")
 
 
+# Phone screenshots (phase 19): a 1170-wide capture cut into five
+# 2532-row screenshots, consecutive ones sharing 400 rows
+SCREENS = (1170, 2532, 5, 400)
+
+
+def phase19_merge(dev, smi, screens=SCREENS):
+    """``merge_overlap`` on the card: five synthetic phone screenshots,
+    orientation 1, vertical.  Every pair's float64 scores on the card
+    against ``_scores_numpy`` (1e-9), the trims against the numpy scorer's
+    and the cut, the merged canvas of ``stitch(..., merge_overlap=True)``
+    against the stitch of the pre-trimmed arrays and the capture (bit for
+    bit), and one job through ``StitchServer.submit``.  Returns the kernel
+    #1 launches of the merged stitch."""
+    import torch
+    import imagestitching_tpu_torch as itt
+    from imagestitching_tpu_torch import RuntimeConfig, StitchOptions
+    from imagestitching_tpu_torch.ops import overlap
+    from imagestitching_tpu_torch.serve.server import StitchServer
+
+    w, h, n, shared = screens
+    base = _pattern(dev, w, h + (n - 1) * (h - shared), 19)
+    shots = [base[k * (h - shared):k * (h - shared) + h] for k in range(n)]
+    cfg = RuntimeConfig(device=str(dev))
+    # the scores detect_pair hands the exact verify, pair by pair
+    worst, t_card, t_numpy = 0.0, 0.0, 0.0
+    for a, b in zip(shots, shots[1:]):
+        o_max = min(int(0.5 * min(len(a), len(b))), len(b) - 1, len(a))
+        region, template = a[len(a) - o_max:], b[:32]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        got = overlap._scores(region, template, dev)
+        t_card += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = overlap._scores_numpy(region, template)
+        t_numpy += time.perf_counter() - t0
+        worst = max(worst, float(np.abs(got - want).max()))
+    check(worst <= 1e-9, f"card scores vs _scores_numpy max |diff| {worst}")
+    t0 = time.perf_counter()
+    trims = overlap.detect_trims(shots, "vertical", device=dev)
+    detect_s = time.perf_counter() - t0
+    want_trims = [0] + [shared] * (n - 1)
+    check(trims == want_trims == overlap.detect_trims(shots, "vertical",
+                                                      device=False),
+          f"trims {trims}, expected {want_trims} and the numpy scorer's")
+
+    opts = StitchOptions(direction="vertical", mode="min", gap=0,
+                         merge_overlap=True)
+    _zero_counts()
+    t0 = time.perf_counter()
+    out, m = itt.stitch(shots, options=opts, config=cfg, return_metrics=True)
+    wall = time.perf_counter() - t0
+    launched = _launch_counts()
+    pre = [shots[0]] + [s[shared:] for s in shots[1:]]
+    want = itt.stitch(pre, options=StitchOptions(direction="vertical",
+                                                 mode="min", gap=0),
+                      config=cfg)
+    check(np.array_equal(out, want), "merged canvas differs from the stitch "
+          "of the pre-trimmed screenshots")
+    check(np.array_equal(out, base), "merged canvas differs from the capture")
+    with StitchServer(config=cfg, max_wait_s=0.001) as srv:
+        t0 = time.perf_counter()
+        served = srv.submit(shots, opts).result(timeout=120)
+        served_s = time.perf_counter() - t0
+    check(np.array_equal(served, out), "served merge differs")
+    say(f"phase19 merge_overlap: {n} screenshots {w}x{h} sharing {shared} "
+        f"rows (capture {w}x{base.shape[0]}), vertical | card float64 scores "
+        f"vs _scores_numpy max |diff| {worst:.3e} over {n - 1} pairs (card "
+        f"{t_card:.4f} s, numpy {t_numpy:.4f} s) | trims {trims} equal to "
+        f"the numpy scorer's, detect_trims on the card {detect_s:.4f} s | "
+        f"stitch(merge_overlap=True) on cuda: strategy {m.strategy}, "
+        f"launches #1/#2/#3 {launched}, canvas equal to the pre-trimmed "
+        f"stitch and the capture, wall {wall:.4f} s | StitchServer.submit "
+        f"equal, {served_s:.4f} s | {smi}")
+    return launched[0]
+
+
+def phase20_grid(dev, smi, shapes=CONFIG4):
+    """The grid collage on the card: config 4-EXIF's nine sources through
+    ``stitch_grid(cols=3, mode="min", gap=4)`` on ``cuda``, launches of #1
+    counted per column (one per resampled placement), the canvas within 1
+    of the oracle of each column's plan around every placement edge and
+    exact on copy spans; then ``valign="center"``, equal column by column.
+    Returns (items, kernel #1 launches of the top-aligned grid)."""
+    import imagestitching_tpu_torch as itt
+    from imagestitching_tpu_torch import RuntimeConfig, StitchOptions
+    from imagestitching_tpu_torch.core import geometry
+    from imagestitching_tpu_torch.core.grid import plan_grid
+    from imagestitching_tpu_torch.core.layout import ImageSpec
+    from imagestitching_tpu_torch.ops import cuda_resize
+    from imagestitching_tpu_torch.runtime import pipeline
+
+    _, _, imgs, items = _config4_job(dev, shapes, 20)
+    opts = StitchOptions(direction="vertical", mode="min", gap=4,
+                         max_images=None)
+    disp = [geometry.orient_array(a, o) for a, o in items]
+    gplan = plan_grid([ImageSpec(a.shape[1], a.shape[0]) for a in disp], 3,
+                      opts)
+    cfg = RuntimeConfig(device=str(dev))
+    real_run, per_col = pipeline.run, []
+
+    def counted(*a, **k):
+        before = cuda_resize.launches
+        out = real_run(*a, **k)
+        per_col.append(cuda_resize.launches - before)
+        return out
+
+    pipeline.run = counted
+    try:
+        rows, canvases, launches_grid = [], {}, None
+        for valign in ("top", "center"):
+            per_col.clear()
+            _zero_counts()
+            t0 = time.perf_counter()
+            out, m = itt.stitch_grid(items, cols=3, options=opts, config=cfg,
+                                     valign=valign, return_metrics=True)
+            wall = time.perf_counter() - t0
+            launched = _launch_counts()
+            expect = [len(resampled(p)) for p in gplan.col_plans]
+            check(per_col == expect and launched == (sum(expect), 0, 0),
+                  f"grid {valign}: launches per column {per_col} "
+                  f"({launched}), expected {expect}")
+            check(out.shape == (gplan.canvas_h, gplan.canvas_w, 3),
+                  f"grid canvas {out.shape}")
+            canvases[valign] = out
+            rows.append(f"valign {valign}: strategy {m.strategy}, launches "
+                        f"#1 per column {per_col} (#1/#2/#3 {launched}), "
+                        f"wall {wall:.4f} s (prepare {m.prepare_s:.4f} "
+                        f"compute {m.compute_s:.4f} readback "
+                        f"{m.readback_s:.4f}, h2d {m.h2d_bytes})")
+            if launches_grid is None:
+                launches_grid = launched[0]
+    finally:
+        pipeline.run = real_run
+    gap_px = int(np.floor(gplan.gap + 0.5))
+    worst = copy_max = 0
+    x = 0
+    for idx, plan in zip(gplan.columns, gplan.col_plans):
+        col = canvases["top"][:plan.canvas_h, x:x + plan.canvas_w]
+        w_, c_ = _oracle_spots(plan, [disp[i] for i in idx], col, 256)
+        worst, copy_max = max(worst, w_), max(copy_max, c_)
+        y = (gplan.canvas_h - plan.canvas_h) // 2
+        check(np.array_equal(
+            canvases["center"][y:y + plan.canvas_h, x:x + plan.canvas_w],
+            col), "valign center: a column differs from the top-aligned one")
+        x += gplan.col_width + gap_px
+    check(worst <= 1 and copy_max == 0, f"grid vs oracle {worst}, copy "
+          f"spans {copy_max}")
+    say(f"phase20 stitch_grid on cuda: config4-EXIF sources (9 x "
+        f"{shapes[0][0]}x{shapes[0][1]}), cols 3, mode min, gap 4, canvas "
+        f"{gplan.canvas_w}x{gplan.canvas_h}x3, columns {list(gplan.columns)} "
+        f"| " + " | ".join(rows) + f" | oracle spots per column max |diff| "
+        f"{worst} copy spans {copy_max} | {smi}")
+    return items, launches_grid
+
+
+def phase21_preview(dev, smi, items, box_w=750):
+    """The preview on the card: the config 4-EXIF canvas kept on the card
+    (``keep_on_device=True``), ``make_preview(box_w=750)``: exactly one
+    launch of #1, equal bit for bit to the plain version on the card,
+    within 1 of ``make_preview(device=False)``; CUDA-event and busy times
+    beside the plain version, one ``F.interpolate`` call and the bound.
+    Returns (launches, the yardsticks)."""
+    import torch
+    import imagestitching_tpu_torch as itt
+    from imagestitching_tpu_torch import RuntimeConfig, StitchOptions
+    from imagestitching_tpu_torch.core import geometry
+    from imagestitching_tpu_torch.ops import cuda_resize
+
+    opts = StitchOptions(direction="vertical", mode="min", gap=4,
+                         max_images=None)
+    canvas, mk = itt.stitch(items, options=opts, config=RuntimeConfig(
+        device=str(dev), overlap="never"), keep_on_device=True,
+        return_metrics=True)
+    check(isinstance(canvas, torch.Tensor) and canvas.device == dev,
+          f"keep_on_device gave {type(canvas).__name__} via {mk.strategy}")
+    h, w, c = canvas.shape
+    pw, ph = itt.preview_size(w, h, box_w)
+    torch.cuda.synchronize(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    prev = itt.make_preview(canvas, box_w)
+    wall = time.perf_counter() - t0
+    launched = _launch_counts()
+    check(launched == (1, 0, 0), f"preview launches {launched}, expected "
+          "(1, 0, 0)")
+    check(prev.shape == (ph, pw, c), f"preview {prev.shape}")
+
+    ri0, rw = geometry.filter_taps(0, ph, 0.0, float(ph), h, "bilinear")
+    ci0, cw = geometry.filter_taps(0, pw, 0.0, float(pw), w, "bilinear")
+    taps = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (ri0, rw.astype(np.float32), ci0, cw.astype(np.float32))]
+    plain_out = cuda_resize.resize_place_ref(canvas, 1, *taps).cpu().numpy()
+    d = int(np.abs(plain_out.astype(np.int16) - prev).max())
+    check(d == 0, f"preview kernel vs plain max |diff| {d} (must be exact)")
+    t0 = time.perf_counter()
+    host = itt.make_preview(canvas, box_w, device=False)
+    host_s = time.perf_counter() - t0
+    dh = int(np.abs(host.astype(np.int16) - prev).max())
+    check(dh <= 1, f"preview vs make_preview(device=False) {dh}")
+
+    out = torch.empty((ph, pw, c), dtype=torch.uint8, device=dev)
+
+    def kernel():
+        cuda_resize.resize_place(canvas, 1, *taps, out, 0, 0)
+
+    def plain():
+        out[:] = cuda_resize.resize_place_ref(canvas, 1, *taps)
+
+    t = time_four(kernel, plain, None, interp_call(canvas, 1, ph, pw,
+                                                   "bilinear"),
+                  reps=10, inner=5, device_reps=10)
+    nbytes = footprint_bytes(ri0, rw, h, ci0, cw, w, c) + ph * pw * c
+    t["bound_ms"] = bound_ms(nbytes)
+    t["worst"] = d
+    say(f"phase21 make_preview(box_w={box_w}) of the config4-EXIF canvas on "
+        f"the card ({w}x{h}x{c}, {canvas.numel() / 1e6:.1f} MB, "
+        f"keep_on_device via {mk.strategy}) -> {pw}x{ph}: launches #1/#2/#3 "
+        f"{launched}, kernel vs plain max |diff| {d}, vs device=False "
+        f"{dh} ({host_s:.4f} s on the host), wall {wall * 1e3:.4f} ms | ms "
+        f"per launch (CUDA events, median of 10x5 in two rounds; profiler "
+        f"busy in brackets): kernel {t['kernel_ms']:.4f} "
+        f"({t['kernel_busy']:.4f}) F.interpolate {t['library_ms']:.4f} "
+        f"({t['library_busy']:.4f}) plain {t['plain_ms']:.4f} "
+        f"({t['plain_busy']:.4f}) bound {t['bound_ms']:.4f} ({nbytes} bytes "
+        f"at 3.35 TB/s) | {smi}")
+    return launched[0], t
+
+
 def main() -> None:
     import argparse
 
@@ -1911,14 +2158,23 @@ def main() -> None:
         marks.append(("17", time.perf_counter()))
         phase18_cli(dev, smi, td, items, opts3)
         marks.append(("18", time.perf_counter()))
+
+    # ---- phases 19-21: the extensions -- merge, grid collage, preview
+    launches_merge = phase19_merge(dev, smi)
+    marks.append(("19", time.perf_counter()))
+    items20, launches_grid = phase20_grid(dev, smi)
+    marks.append(("20", time.perf_counter()))
+    launches_preview, t21 = phase21_preview(dev, smi, items20)
+    del items20
+    marks.append(("21", time.perf_counter()))
     say("seconds by phase (host clock): " + " ".join(
         f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in
         enumerate(marks[1:])) + f" | total {marks[-1][1] - marks[0][1]:.1f}")
 
-    def entry(name, replaces, launches, worst, t, **by_path):
-        def r(v):
-            return None if v is None else round(v, 6)
+    def r(v):
+        return None if v is None else round(v, 6)
 
+    def entry(name, replaces, launches, worst, t, **by_path):
         return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": worst, "ms": r(t["kernel_ms"]),
@@ -1930,11 +2186,20 @@ def main() -> None:
 
     # "launches": the count on the kernel's first path (phase 4, 9 or 13's
     # banded run); "launches_overlapped": on the overlapped scheduler's run
-    # of phase 16 (its resident plan for #1, its banded budget for #3)
+    # of phase 16 (its resident plan for #1, its banded budget for #3);
+    # "launches_merge", "launches_grid" and "launches_preview": #1 on the
+    # merged stitch of phase 19, the top-aligned grid of phase 20 and the
+    # preview of phase 21; "preview": #1's yardsticks at phase 21's launch
     record = {"kernels": [
         entry("resize_place", REPLACES, launches_main,
-              max(worst_all, t6["worst"]), t6,
-              launches_overlapped=launches_ov),
+              max(worst_all, t6["worst"], t21["worst"]), t6,
+              launches_overlapped=launches_ov, launches_merge=launches_merge,
+              launches_grid=launches_grid, launches_preview=launches_preview,
+              preview={"ms": r(t21["kernel_ms"]),
+                       "busy_ms": r(t21["kernel_busy"]),
+                       "plain_ms": r(t21["plain_ms"]),
+                       "library_ms": r(t21["library_ms"]),
+                       "bound_ms": r(t21["bound_ms"])}),
         entry("resize_place_batch", REPLACES_BATCH, launches5,
               max(worst8, t10["worst"]), t10),
         entry("resize_place_window", REPLACES_WINDOW, launches_w,

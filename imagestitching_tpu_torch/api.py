@@ -1,13 +1,18 @@
 """High-level stitch API of the port: arrays/files in -> array/file out.
 
-Port of ``imagestitching_tpu/api.py:192-561``: ``stitch_arrays``,
-``stitch`` with its overlap branch (``_probe_item``, ``_overlappable_array``,
-``_is_big_task``, ``_blit_copies``, ``_stitch_blit_overlapped``) and
-``stitch_to_file`` with the streaming export (``_blit_stream_attempt``,
-``_native_available``).  The host helpers -- ``prepare`` (parallel decode
-with failure isolation), ``_load_one``, ``_decode_with_retry``,
-``_flatten_alpha``, ``_as_uint8`` and ``_unify_channels`` -- are the port's
-own copies of :25-189, equal to them in what they compute; a
+Port of ``imagestitching_tpu/api.py``: ``stitch_arrays`` (with the
+``merge_overlap`` pre-pass), ``stitch`` with its overlap branch
+(``_probe_item``, ``_overlappable_array``, ``_is_big_task``,
+``_blit_copies``, ``_stitch_blit_overlapped``), ``stitch_to_file`` with the
+streaming export (``_blit_stream_attempt``, ``_native_available``), the
+grid collage ``stitch_grid`` (one ``pipeline.run`` per column, assembled on
+the host), ``preview_size`` and ``make_preview``, which draws the preview
+as one bilinear placement through the resize-and-place kernel (#1) where
+the JAX package jitted a resize.  The host helpers -- ``prepare``
+(parallel decode with failure isolation), ``_load_one``,
+``_decode_with_retry``, ``_flatten_alpha``, ``_as_uint8`` and
+``_unify_channels`` -- are the port's own copies of :25-189, equal to them
+in what they compute; a
 ``torch.Tensor`` input counts where the original took a JAX array and is
 read back with ``.cpu().numpy()``.
 
@@ -15,8 +20,9 @@ A big job (7 or more images, or 25 MB of files; or ``overlap="always"``)
 is laid out from image headers and runs on ``pipeline.run_overlapped``,
 each source drawn as its decode lands; a pure-copy plan pastes on the host
 instead.  ``stitch_to_file`` streams the canvas band by band into the
-native encoder.  ``merge_overlap`` arrives with the extensions slice and
-raises ``NotImplementedError``.
+native encoder.  No card path falls back to the host or to the plain
+version: a fault propagates, and ``device="cpu"`` (or ``device=False`` for
+the preview) is the caller's way to the host.
 """
 
 from __future__ import annotations
@@ -218,19 +224,23 @@ def stitch_arrays(images: Sequence[np.ndarray],
     ``keep_on_device=True`` returns the canvas as a tensor on
     ``config.device`` instead of reading it back, when the strategy holds
     it there (resident, streamed); the banded strategy composites on the
-    host and returns numpy either way.
+    host and returns numpy either way.  ``options.merge_overlap`` trims the
+    duplicated strips first, scored on ``config.device``
+    (:func:`.ops.overlap.merge_arrays`).
     """
     options = (options or StitchOptions()).validate()
     config = (config or RuntimeConfig()).validate()
-    if options.merge_overlap:
-        raise NotImplementedError(
-            "merge_overlap arrives with the port's extensions slice")
     if limits is None:
         limits = config.limits          # explicit arg overrides the config
     images = _unify_channels([_as_uint8(a) for a in images])
     if specs is None:
         specs = [ImageSpec(a.shape[1], a.shape[0]) for a in images]
     log = get_logger()
+    if options.merge_overlap:
+        from .ops import overlap as _overlap
+        images, specs, trims = _overlap.merge_arrays(images, specs, options,
+                                                     config.device)
+        log.event("stitch.merge", trims=trims)
     plan = solve(specs, options, limits)
     log.event("stitch.plan", canvas=(plan.canvas_w, plan.canvas_h),
               n=len(images), mode=plan.mode, direction=plan.direction,
@@ -565,3 +575,168 @@ def _blit_stream_attempt(items, out_path: str, ext: str, quality: int,
 def _native_available() -> bool:
     from .imgio import native
     return native.available()
+
+
+def stitch_grid(items: Sequence[ImageInput], cols: int = 3,
+                options: Optional[StitchOptions] = None,
+                config: Optional[RuntimeConfig] = None,
+                limits: Optional[CanvasLimits] = None,
+                on_error: str = "raise",
+                progress: ProgressFn = _noop_progress,
+                order: str = "balance", valign: str = "top",
+                return_metrics: bool = False):
+    """Masonry grid collage: ``cols`` columns, images resized ONCE to the
+    common column width (a framework extension: the reference app only
+    produces 1-D strips).
+
+    Each column is an ordinary vertical-strip job, one ``pipeline.run`` on
+    ``config.device`` (every strategy of the ladder applies per column; see
+    ``core/grid.py`` for the sizing contract), then the columns are
+    assembled write-once on a background canvas on the host.  ``order``:
+    "balance" = shortest-column masonry assignment, "preserve" = row-major
+    input order.  ``valign``: "top" or "center" -- where a shorter column
+    sits against the tallest one.
+    """
+    from .core.grid import plan_grid
+    from .core.layout import _js_round
+
+    if valign not in ("top", "center"):
+        raise ValueError(f"valign must be 'top' or 'center', got {valign!r}")
+    options = (options or StitchOptions()).validate()
+    if options.merge_overlap:
+        raise ValueError("merge_overlap composes with strips, not grids; "
+                         "trim overlaps first (ops.overlap.detect_trims)")
+    config = (config or RuntimeConfig()).validate()
+    if limits is None:
+        limits = config.limits          # explicit arg overrides the config
+    t0 = time.perf_counter()
+    images, specs, failures = prepare(items, config, on_error, progress)
+    prepare_s = time.perf_counter() - t0
+    if not images:
+        if failures:
+            raise RuntimeError(
+                f"all {len(failures)} images failed to prepare; "
+                f"first: {failures[0][1]!r}")
+        raise ValueError("no images to stitch")
+    from .core import geometry
+    disp = []
+    for img, s in zip(images, specs):
+        # _as_uint8 flattens LA/RGBA onto white and guarantees C in {1, 3};
+        # grid assembly is RGB-only, so grayscale promotes here
+        a = geometry.orient_array(_as_uint8(img), s.orientation)
+        if a.shape[2] == 1:
+            a = np.repeat(a, 3, axis=2)
+        disp.append(a)
+    d_specs = [ImageSpec(a.shape[1], a.shape[0]) for a in disp]
+    gplan = plan_grid(d_specs, cols, options, limits, order)
+    log = get_logger()
+    log.event("stitch.grid", canvas=(gplan.canvas_w, gplan.canvas_h),
+              cols=gplan.cols, col_width=gplan.col_width, n=len(disp),
+              scale_down=gplan.scale_down)
+
+    from .runtime import pipeline
+    canvas = np.empty((gplan.canvas_h, gplan.canvas_w, 3), np.uint8)
+    canvas[:] = np.asarray(gplan.background, np.uint8)
+    agg = pipeline.StitchMetrics(strategy="grid", prepare_s=prepare_s,
+                                 canvas_w=gplan.canvas_w,
+                                 canvas_h=gplan.canvas_h)
+    gap_px = int(_js_round(gplan.gap))
+    x = 0
+    strategies = []
+    for k, (idx_list, plan) in enumerate(zip(gplan.columns,
+                                             gplan.col_plans)):
+        col_imgs = [disp[i] for i in idx_list]
+        out, m = pipeline.run(plan, col_imgs, config,
+                              progress=lambda ph, f, _k=k: progress(
+                                  "grid", (_k + f) / gplan.cols))
+        y = ((gplan.canvas_h - out.shape[0]) // 2 if valign == "center"
+             else 0)
+        canvas[y:y + out.shape[0], x:x + out.shape[1]] = out
+        x += gplan.col_width + gap_px
+        strategies.append(m.strategy)
+        for f in ("layout_s", "compute_s", "readback_s", "total_s",
+                  "stage_wait_s", "h2d_bytes"):
+            setattr(agg, f, getattr(agg, f) + getattr(m, f))
+        agg.est_peak_bytes = max(agg.est_peak_bytes, m.est_peak_bytes)
+        agg.stage_wait_max_s = max(agg.stage_wait_max_s, m.stage_wait_max_s)
+    agg.strategy = "grid(" + ",".join(strategies) + ")"
+    agg.total_s += prepare_s
+    log.event("stitch.grid.done", shape=tuple(canvas.shape))
+    return (canvas, agg) if return_metrics else canvas
+
+
+def preview_size(width: int, height: int, box_w: int,
+                 min_height: int = 180) -> Tuple[int, int]:
+    """Fit-to-width preview dims with a minimum height.
+
+    The ``calcPreviewHeight`` analog (utils/canvas.js:124-128): preview height
+    follows the aspect ratio at the box width, floored at 180 px.  The
+    reference keeps the height as a fractional CSS px; a raster preview
+    needs an integer, so we round half-up (``Math.round``) like every other
+    rounding in the layout contract (core.layout._js_round) — Python's
+    banker's ``round`` would diverge by a full row at exact .5 ratios.
+    """
+    from .core.layout import _js_round
+    h = max(min_height, _js_round(box_w * height / max(1, width)))
+    return box_w, h
+
+
+def _on_card(image) -> bool:
+    """A uint8 HWC tensor of 1 or 3 channels on a CUDA device: a canvas of
+    ``stitch_arrays(keep_on_device=True)``, drawn where it lies."""
+    return (isinstance(image, torch.Tensor) and image.device.type == "cuda"
+            and image.dtype == torch.uint8 and image.ndim == 3
+            and image.shape[2] in (1, 3))
+
+
+def make_preview(image, box_w: int, min_height: int = 180,
+                 device=True) -> np.ndarray:
+    """Downscaled preview of a stitched strip (reference preview draw,
+    pages/index/index.js:1593-1609), with the same bilinear contract.
+
+    ``device``: ``True`` (default) draws on the card -- a CUDA tensor input
+    on its own device, anything else on ``cuda`` -- as one bilinear
+    placement through the resize-and-place kernel (#1), and reads back only
+    the preview; a ``torch.device`` or device string draws on that device
+    (``"cpu"`` runs the kernel's plain version); ``False`` takes the float64
+    host (oracle) path.  A fault on the card propagates.
+    """
+    if not _on_card(image):
+        # normalize BEFORE the device/host split: LA/RGBA flattens onto
+        # white on both paths
+        image = _as_uint8(image)
+    h, w = image.shape[0], image.shape[1]
+    pw, ph = preview_size(w, h, box_w, min_height)
+    if device is not False and device is not None:
+        if device is True:
+            device = image.device if _on_card(image) else "cuda"
+        return _device_resize(image, ph, pw, device).cpu().numpy()
+    image = _as_uint8(image)            # reads a card tensor back
+    rows = _oracle.resample_axis(image.astype(np.float64), 0, 0, ph, 0.0,
+                                 float(ph))
+    full = _oracle.resample_axis(rows, 1, 0, pw, 0.0, float(pw))
+    return _oracle.to_uint8(full)
+
+
+def _device_resize(image, ph: int, pw: int, device) -> torch.Tensor:
+    """The ``(ph, pw, C)`` uint8 bilinear resize of the HWC uint8 ``image``
+    (an array or a tensor) on ``device``: one placement of the whole image
+    onto a fresh canvas through ``cuda_resize.resize_place`` (kernel #1 on a
+    CUDA device, its plain version on the CPU), with the engine's f32 taps
+    from ``geometry.filter_taps``."""
+    from .core import geometry
+    from .ops import cuda_resize
+    from .runtime.pipeline import resolve_device
+
+    device = resolve_device(device)
+    src = (image if isinstance(image, torch.Tensor)
+           else torch.from_numpy(np.ascontiguousarray(image)))
+    src = src.to(device).contiguous()
+    h, w, c = src.shape
+    ri0, rw = geometry.filter_taps(0, ph, 0.0, float(ph), h, "bilinear")
+    ci0, cw = geometry.filter_taps(0, pw, 0.0, float(pw), w, "bilinear")
+    taps = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (ri0, rw.astype(np.float32), ci0, cw.astype(np.float32))]
+    canvas = torch.empty((ph, pw, c), dtype=torch.uint8, device=device)
+    cuda_resize.resize_place(src, 1, *taps, canvas, 0, 0)
+    return canvas

@@ -9,8 +9,9 @@ Twin of ``imagestitching_tpu/cli.py``: the same flags, the same output
   took JAX's platform; ``--device cpu`` runs the kernels' plain version;
 * ``--hbm-budget auto`` is :func:`..config.budget_from_device` of that
   device;
-* ``--grid-cols`` and ``--merge-overlap`` arrive with the port's extensions
-  slice: they end with ``error: ...`` and exit 1.
+* ``--grid-cols`` runs ``api.stitch_grid`` (each column on the device) and
+  encodes with ``imgio.codec.encode``; ``--merge-overlap`` scores the
+  overlaps on the device.
 """
 
 from __future__ import annotations
@@ -66,8 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="render above target resolution when under the pixel "
                         "cap (reference does this by default on phones)")
     p.add_argument("--grid-cols", type=int, default=None, metavar="N",
-                   help="masonry grid collage with N columns (arrives with "
-                        "the port's extensions slice)")
+                   help="masonry grid collage with N columns instead of a "
+                        "1-D strip (images resized once to the common "
+                        "column width)")
     p.add_argument("--grid-order", choices=("balance", "preserve"),
                    default="balance",
                    help="grid assignment: balance = shortest-column "
@@ -75,9 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--valign", choices=("top", "center"), default="top",
                    help="grid: align shorter columns to the top or center")
     p.add_argument("--merge-overlap", action="store_true", default=False,
-                   help="trim the duplicated strip between consecutive "
-                        "screenshots (arrives with the port's extensions "
-                        "slice)")
+                   help="auto-detect the duplicated strip between "
+                        "consecutive screenshots along the stitch axis and "
+                        "trim it before stitching")
     p.add_argument("--merge-threshold", type=float, default=2.0,
                    metavar="LEVELS",
                    help="max mean-abs-diff (uint8 levels) for an overlap to "
@@ -217,17 +219,25 @@ def main(argv: Optional[List[str]] = None) -> int:
             cfg_kw["decode_window"] = args.decode_window
         config = RuntimeConfig(**cfg_kw).validate()
         if args.grid_cols is not None:
-            raise NotImplementedError(
-                "--grid-cols arrives with the port's extensions slice")
-        if args.merge_overlap:
-            raise NotImplementedError(
-                "--merge-overlap arrives with the port's extensions slice")
-        _, metrics = api.stitch_to_file(
-            args.images, args.output, quality=args.quality,
-            png_compression=args.png_level,
-            stream=False if args.no_stream else "auto",
-            return_metrics=True, options=options, config=config,
-            limits=limits, on_error=args.on_error, progress=progress)
+            from .imgio import codec
+            canvas, metrics = api.stitch_grid(
+                args.images, cols=args.grid_cols, options=options,
+                config=config, limits=limits, on_error=args.on_error,
+                progress=progress, order=args.grid_order,
+                valign=args.valign, return_metrics=True)
+            te = time.perf_counter()
+            codec.encode(args.output, canvas, quality=args.quality,
+                         png_compression=args.png_level)
+            enc_s = time.perf_counter() - te
+            metrics.encode_s += enc_s
+            metrics.total_s += enc_s
+        else:
+            _, metrics = api.stitch_to_file(
+                args.images, args.output, quality=args.quality,
+                png_compression=args.png_level,
+                stream=False if args.no_stream else "auto",
+                return_metrics=True, options=options, config=config,
+                limits=limits, on_error=args.on_error, progress=progress)
     except (ValueError, RuntimeError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

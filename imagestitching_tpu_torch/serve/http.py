@@ -7,10 +7,10 @@ dynamic batcher of :class:`.server.StitchServer`; requests that arrive within
 * ``POST /stitch``  -- images in request order, either
   ``multipart/form-data`` file parts or JSON ``{"images": ["<base64>", ..]}``;
   stitch options via query string or JSON fields (``direction``, ``mode``,
-  ``gap``, ``filter``, ``background="R,G,B"``, ``format=png|jpg``,
-  ``quality``, ``png_level``).  Responds with the encoded strip.
-  ``merge_overlap`` and ``grid_cols`` answer 501 until the port's
-  extensions slice lands.
+  ``gap``, ``filter``, ``background="R,G,B"``, ``merge_overlap``,
+  ``merge_threshold``, ``grid_cols`` (+ ``grid_order``/``valign`` -- a grid
+  collage instead of a strip), ``format=png|jpg``, ``quality``,
+  ``png_level``).  Responds with the encoded strip.
 * ``POST /warmup``  -- run one zero batch per size for an expected job
   geometry (JSON ``{"shapes": [[h, w], ...], "batch_sizes": [1, 8], ...}``
   plus the option fields of ``/stitch``).
@@ -26,6 +26,7 @@ the GIL); the server's worker thread owns the device.
 from __future__ import annotations
 
 import base64
+import dataclasses
 import json
 import threading
 from email.message import Message
@@ -49,15 +50,12 @@ class BadImage(ValueError):
 
 def _status_for(e: Exception) -> int:
     """Map a request failure to an HTTP status: client errors (bad options,
-    undecodable images) 400, a job past the result deadline 504, a feature
-    the port has not reached yet 501, anything else (a device or kernel
-    failure) 500."""
+    undecodable images) 400, a job past the result deadline 504, anything
+    else (a device or kernel failure) 500."""
     if isinstance(e, ValueError):
         return 400
     if isinstance(e, TimeoutError):      # concurrent.futures alias too
         return 504
-    if isinstance(e, NotImplementedError):
-        return 501
     return 500
 
 
@@ -239,10 +237,6 @@ class StitchHTTPServer:
     def stitch_blobs(self, blobs: List[bytes], options: StitchOptions,
                      enc: dict) -> Tuple[bytes, str]:
         """Decode request images, run one batched job, encode the strip."""
-        if enc.get("grid_cols"):
-            raise NotImplementedError(
-                "grid_cols (the grid collage, api.stitch_grid) arrives with "
-                "the port's extensions slice")
         # overload pre-check before paying per-request decode work (the
         # authoritative slot-reserving check still happens at submission)
         self.server.ensure_capacity()
@@ -252,9 +246,25 @@ class StitchHTTPServer:
             raise BadImage(f"image decode failed: {e}") from e  # client's
         images = [d[0] for d in decoded]
         orientations = [d[1] for d in decoded]   # EXIF applied on device
-        out = self.server.submit(images, options,
-                                 orientations=orientations).result(
-                                     timeout=300)
+        if enc.get("grid_cols"):
+            # grid collage: a one-shot job of several plans, run through the
+            # api (one strip pipeline per column), not the batching server.
+            # It holds a server admission slot (the max_queue backpressure of
+            # batch jobs) and inherits the server's whole RuntimeConfig,
+            # overriding only the device and engine the server resolved.
+            from .. import api
+            with self.server.admission():
+                out = api.stitch_grid(
+                    list(zip(images, orientations)), cols=enc["grid_cols"],
+                    options=options,
+                    config=dataclasses.replace(
+                        self.server.config, device=str(self.server.device),
+                        engine=self.server.engine),
+                    order=enc["grid_order"], valign=enc["valign"])
+        else:
+            out = self.server.submit(images, options,
+                                     orientations=orientations).result(
+                                         timeout=300)
         if enc["format"] in ("jpg", "jpeg"):
             data = codec.encode_bytes(out, "jpeg", quality=enc["quality"])
             return data, "image/jpeg"

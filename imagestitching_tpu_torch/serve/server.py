@@ -16,8 +16,10 @@ What the JAX server did for XLA and the TPU has no twin here.  There is no
 compile per batch size, so a flush runs exactly the jobs it has (the JAX
 server padded to a power of two to bound recompiles).  There is no
 ``Infeasible``, so ``engine="auto"`` is never demoted per signature: every
-placement, however deep its downscale, runs on the kernel.  ``use_mesh`` and
-``merge_overlap`` arrive with the multi-GPU and extensions slices.
+placement, however deep its downscale, runs on the kernel.  A
+``merge_overlap`` job is trimmed in the caller's thread, its overlaps scored
+on the server's device, before it is keyed.  ``use_mesh`` arrives with the
+multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -134,14 +136,13 @@ class StitchServer:
         """Enqueue one stitch job; resolves to the uint8 HWC strip.
 
         ``orientations``: per-image EXIF orientation (1-8) applied on the
-        device, as ``stitch`` does for decoded files.
+        device, as ``stitch`` does for decoded files.  With
+        ``options.merge_overlap`` the duplicated strips are found (on the
+        server's device) and trimmed here, in the caller's thread.
         """
         if self._closed:
             raise RuntimeError("server is closed")
         options = (options or StitchOptions()).validate()
-        if options.merge_overlap:
-            raise NotImplementedError(
-                "merge_overlap arrives with the port's extensions slice")
         if orientations is None:
             orientations = [1] * len(images)
         if len(orientations) != len(images):
@@ -156,6 +157,14 @@ class StitchServer:
                 [np.ascontiguousarray(_api._as_uint8(a)) for a in images])
             specs = [ImageSpec(a.shape[1], a.shape[0], int(o))
                      for a, o in zip(imgs, orientations)]
+            if options.merge_overlap:
+                # pixel-derived trims change the specs, so merge runs in the
+                # caller's thread before the job is keyed by signature
+                from ..ops import overlap as _overlap
+                imgs, specs, trims = _overlap.merge_arrays(
+                    imgs, specs, options, self.device)
+                if any(trims):
+                    self._log.event("serve.merge", trims=trims)
             plan = solve(specs, options,
                          self.config.limits if limits is None else limits)
             with self._plock:

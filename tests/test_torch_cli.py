@@ -240,12 +240,33 @@ def test_cli_parity_profile_with_supersample(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--grid-cols", "2"], ["--merge-overlap"]])
 def test_cli_extensions_not_yet_ported(tmp_path, flag):
-    a = _png(tmp_path / "a.png", 8, 8, 15)
-    out = tmp_path / "o.png"
-    rc, _, err = run_port(a, a, "-o", out, "--device", "cpu", *flag)
-    assert rc == 1
-    assert err.startswith("error:") and "extensions slice" in err
-    assert not out.exists()
+    """``--grid-cols 2`` on four equal tiles writes their blit mosaic (twin
+    of tests/test_grid.py:296-317); ``--merge-overlap`` on two strips cut
+    with 50 shared rows writes the capture (tests/test_merge_overlap.py:
+    170-190); each decoded equal to the JAX CLI's file."""
+    rng = np.random.default_rng(15)
+    if flag[0] == "--grid-cols":
+        imgs = [rng.integers(0, 256, (60, 50, 3), np.uint8)
+                for _ in range(4)]
+        want = np.hstack([np.vstack([imgs[0], imgs[2]]),
+                          np.vstack([imgs[1], imgs[3]])])
+        flags = [*flag, "--gap", "0"]
+    else:
+        want = rng.integers(0, 256, (420, 70, 3), np.uint8)
+        imgs = [want[:240], want[190:]]
+        flags = flag
+    paths = []
+    for i, a in enumerate(imgs):
+        paths.append(tmp_path / f"in{i}.png")
+        Image.fromarray(a).save(paths[-1])
+    res, got, theirs = _both(tmp_path, paths, *flags, "--json",
+                             "--metrics")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, theirs)
+    assert (res["width"], res["height"]) == (want.shape[1], want.shape[0])
+    if flag[0] == "--grid-cols":
+        assert res["metrics"]["strategy"] == "grid(host-blit,host-blit)"
+        assert res["metrics"]["encode_s"] > 0
 
 
 @pytest.mark.parametrize("argv", [[], ["--hbm-budget", "auto"]])

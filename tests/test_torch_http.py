@@ -1,6 +1,7 @@
 """The port's HTTP front end on the CPU: JSON and multipart stitch, EXIF,
-health and stats, warmup, and the status mapping (400, 413, 501, 503, 504,
-500); the scenarios of tests/test_http.py that the port supports.
+health and stats, warmup, the grid and merge fields, and the status
+mapping (400, 413, 503, 504, 500); the scenarios of tests/test_http.py that
+the port supports.
 
 Answers are held to ``imagestitching_tpu_torch.stitch`` on the same bytes
 bit for bit (the same decoder and arithmetic on either path), and to the
@@ -195,17 +196,39 @@ def test_unknown_route_is_404(srv):
 
 @pytest.mark.parametrize("field", ["grid_cols", "merge_overlap"])
 def test_not_yet_ported_options_are_501(srv, field):
-    img = base64.b64encode(_png(
-        rng.integers(0, 256, (8, 8, 3), np.uint8))).decode()
-    value = 2 if field == "grid_cols" else "true"
-    code, body = _status_of(srv, {"images": [img, img], field: value})
-    assert code == 501 and "extensions" in body["error"]
+    """The extension fields answer 200 with the extension's result: a
+    2-column grid of four equal tiles is their blit mosaic (twin of
+    tests/test_grid.py:181-205), and a merged pair of overlapping strips
+    is the capture they were cut from (tests/test_merge_overlap.py:193-216).
+    """
+    if field == "grid_cols":
+        imgs = [rng.integers(0, 256, (50, 40, 3), np.uint8)
+                for _ in range(4)]
+        want = np.hstack([np.vstack([imgs[0], imgs[2]]),
+                          np.vstack([imgs[1], imgs[3]])])
+        extra = {"grid_cols": 2, "gap": 0}
+    else:
+        want = rng.integers(0, 256, (460, 72, 3), np.uint8)
+        imgs = [want[:250], want[200:]]
+        extra = {"merge_overlap": "true"}
+    payload = {"images": [base64.b64encode(_png(a)).decode() for a in imgs],
+               **extra}
+    with _post_json(srv, payload) as r:
+        assert r.status == 200
+        np.testing.assert_array_equal(_decode(r), want)
 
 
 def test_grid_cols_raises_not_implemented(srv):
-    options, enc = http._options_from({"grid_cols": "2"})
-    with pytest.raises(NotImplementedError, match="extensions"):
-        srv.stitch_blobs([b""], options, enc)
+    """``stitch_blobs`` runs a grid job itself (not through the batcher):
+    the grid of two equal tiles, and no job added to the server's count."""
+    options, enc = http._options_from({"grid_cols": "2", "gap": "0"})
+    imgs = [rng.integers(0, 256, (20, 16, 3), np.uint8) for _ in range(2)]
+    before = srv.server.stats()["jobs"]
+    data, ctype = srv.stitch_blobs([_png(a) for a in imgs], options, enc)
+    assert ctype == "image/png"
+    np.testing.assert_array_equal(codec.decode(data)[0], np.hstack(imgs))
+    assert srv.server.stats()["jobs"] == before
+    assert srv.server.stats()["pending"] == 0
 
 
 def test_request_size_limit_is_413():
@@ -249,7 +272,7 @@ def test_status_mapping():
     assert http._status_for(http.BadImage("x")) == 400
     assert http._status_for(TimeoutError("slow")) == 504
     assert http._status_for(cf.TimeoutError()) == 504
-    assert http._status_for(NotImplementedError("later")) == 501
+    assert http._status_for(NotImplementedError("later")) == 500
     assert http._status_for(RuntimeError("x")) == 500
     assert http._status_for(MemoryError()) == 500
 

@@ -5,9 +5,12 @@ The test process itself has JAX loaded (tests/conftest.py imports it), so
 the import checks run in fresh subprocesses: once as they are, and once
 more with a ``sys.meta_path`` finder that makes ``imagestitching_tpu``
 unimportable, so the port's entry points (the CPU stitch, the ladder, the
-server, ``serve.http --help``, the CLI's ``--help`` and a CPU CLI job) are
-shown to run on its own copies of the host layers.  An AST walk over every module of the port and over
-``chip_smoke.py`` finds no import of ``jax`` or ``imagestitching_tpu``.
+server, ``serve.http --help``, the CLI's ``--help``, a CPU CLI job, the
+top-level names and the extensions: grid, merge and preview) are shown to
+run on its own copies of the host layers.  An AST walk over every module
+of the port and over ``chip_smoke.py`` finds no import of ``jax`` or
+``imagestitching_tpu``; the port's top level exports the JAX package's
+names, eagerly and lazily, under the same split.
 """
 
 import ast
@@ -108,10 +111,50 @@ assert "jax" not in sys.modules, sorted(
 """
 
 
+_TOP_LEVEL = """
+import sys
+from imagestitching_tpu_torch import (
+    CanvasLimits, DIRECTIONS, ImageSpec, LayoutPlan, MemoryBudget, MODES,
+    Placement, RuntimeConfig, StitchOptions, SUPPORTED_TYPES, solve)
+plan = solve([ImageSpec(40, 30, 6), ImageSpec(20, 10)], StitchOptions(gap=2))
+assert isinstance(plan, LayoutPlan) and DIRECTIONS[0] == "vertical"
+assert "torch" not in sys.modules and "jax" not in sys.modules
+from imagestitching_tpu_torch import (ArtifactStore, make_preview, prepare,
+                                      preview_size, stitch_grid)
+assert preview_size(400, 200, 100) == (100, 180)
+"""
+
+
+_CPU_EXTENSIONS = """
+import sys
+import numpy as np
+import imagestitching_tpu_torch as itt
+rng = np.random.default_rng(3)
+cpu = itt.RuntimeConfig(device="cpu")
+imgs = [rng.integers(0, 256, (h, w, 3), np.uint8)
+        for h, w in ((40, 30), (25, 50), (30, 20), (44, 36))]
+grid, m = itt.stitch_grid(imgs, cols=2, options=itt.StitchOptions(gap=2),
+                          config=cpu, return_metrics=True)
+assert m.strategy.startswith("grid(") and grid.ndim == 3, m
+base = rng.integers(0, 256, (300, 40, 3), np.uint8)
+opts = itt.StitchOptions(merge_overlap=True)
+out = itt.stitch_arrays([base[:180], base[140:]], options=opts, config=cpu)
+assert np.array_equal(out, base)
+prev = itt.make_preview(grid, 20, min_height=1, device="cpu")
+assert prev.shape[1] == 20, prev.shape
+import torch
+assert not torch.cuda.is_initialized()
+assert "jax" not in sys.modules, sorted(
+    m for m in sys.modules if m.split(".")[0] == "jax")
+"""
+
+
 @pytest.mark.parametrize("script", [_IMPORT_ONLY, _CPU_STITCH,
-                                    _CPU_LADDER, _SERVE_IMPORT, _CPU_CLI],
+                                    _CPU_LADDER, _SERVE_IMPORT, _CPU_CLI,
+                                    _TOP_LEVEL, _CPU_EXTENSIONS],
                          ids=["import", "cpu-stitch", "cpu-ladder",
-                              "serve-import", "cpu-cli"])
+                              "serve-import", "cpu-cli", "top-level",
+                              "cpu-extensions"])
 def test_port_never_loads_jax(script):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=_ROOT,
@@ -154,9 +197,9 @@ _HELP_NEEDLE = {_SERVE_HELP: "--max-batch", _CLI_HELP: "--device"}
 @pytest.mark.parametrize("script,argv", [
     (_IMPORT_ONLY, []), (_CPU_STITCH, []), (_CPU_LADDER, []),
     (_SERVE_IMPORT, []), (_SERVE_HELP, ["--help"]), (_CLI_HELP, ["--help"]),
-    (_CPU_CLI, [])],
+    (_CPU_CLI, []), (_TOP_LEVEL, []), (_CPU_EXTENSIONS, [])],
     ids=["import", "cpu-stitch", "cpu-ladder", "serve-import", "serve-help",
-         "cli-help", "cpu-cli"])
+         "cli-help", "cpu-cli", "top-level", "cpu-extensions"])
 def test_port_runs_without_the_jax_package(script, argv):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     check = ("\nassert not [m for m in sys.modules if m == "
@@ -179,6 +222,8 @@ def test_no_port_source_imports_jax():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax)\b", re.M)
     files = _sources()
     assert len(files) >= 9
+    for module in ("core/grid.py", "ops/overlap.py", "api.py"):
+        assert os.path.join(_PORT, module) in files, module
     for path in files:
         with open(path) as f:
             assert not pattern.search(f.read()), path
@@ -247,3 +292,38 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _lazy_names(path):
+    """The names the package's module ``__getattr__`` resolves: every
+    string it compares ``name`` with."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "__getattr__")
+    return {n.value for n in ast.walk(fn)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and n.value.isidentifier()}
+
+
+def test_top_level_names_equal_the_jax_package():
+    """The port exports what ``imagestitching_tpu`` exports, eagerly and
+    lazily, under the same split, and every name resolves."""
+    import imagestitching_tpu
+    import imagestitching_tpu_torch
+
+    assert imagestitching_tpu_torch.__all__ == imagestitching_tpu.__all__
+    lazy = _lazy_names(os.path.join(_PORT, "__init__.py"))
+    assert lazy == _lazy_names(os.path.join(
+        _ROOT, "imagestitching_tpu", "__init__.py"))
+    assert {"stitch_grid", "make_preview", "preview_size", "prepare",
+            "ArtifactStore"} <= lazy
+    constants = ("DIRECTIONS", "MODES", "SUPPORTED_TYPES")
+    for name in (set(imagestitching_tpu.__all__) | lazy) - set(constants):
+        assert getattr(imagestitching_tpu_torch, name).__module__.startswith(
+            "imagestitching_tpu_torch."), name
+    for name in constants:
+        assert getattr(imagestitching_tpu_torch, name) == getattr(
+            imagestitching_tpu, name)
+    with pytest.raises(AttributeError):
+        imagestitching_tpu_torch.no_such_name

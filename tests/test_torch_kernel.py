@@ -410,3 +410,73 @@ def test_stitch_to_file_streams_a_card_canvas(card, tmp_path):
                                           codec.decode(q)[0])
         else:
             assert open(p, "rb").read() == open(q, "rb").read()
+
+
+# ---------------------------------------------------------------- extensions
+
+@pytest.mark.parametrize("h,w,c,box_w", [
+    (1, 37, 3, 12), (37, 1, 3, 12), (1, 1, 3, 12), (3, 500, 3, 12),
+    (333, 517, 1, 120), (2728, 300, 3, 75), (9, 7, 3, 50)])
+def test_preview_kernel_equals_plain_version(card, h, w, c, box_w):
+    """The preview is one launch of kernel #1 (orientation 1, K = 2),
+    equal bit for bit to the plain version on the same pixels, from a host
+    array and from a CUDA tensor on the card (no host round trip), and
+    within 1 of the float64 host path."""
+    from imagestitching_tpu_torch import api
+
+    img = np.random.default_rng(h * w + c).integers(0, 256, (h, w, c),
+                                                    np.uint8)
+    want = api.make_preview(img, box_w, min_height=2, device="cpu")
+    for source in (img, torch.from_numpy(img).to(card)):
+        before = cuda_resize.launches
+        got = api.make_preview(source, box_w, min_height=2)
+        assert cuda_resize.launches == before + 1
+        np.testing.assert_array_equal(got, want)
+    host = api.make_preview(img, box_w, min_height=2, device=False)
+    assert int(np.abs(got.astype(np.int16) - host.astype(np.int16)).max()) \
+        <= 1
+
+
+def test_grid_on_card_equals_grid_on_cpu(card):
+    """Three columns of mixed widths (every column resamples) and EXIF
+    orientations: the grid on the card equals the grid on the CPU bit for
+    bit, one launch of #1 per resampled placement."""
+    from imagestitching_tpu_torch import api
+
+    rng = np.random.default_rng(20)
+    shapes = [(300, 200, 1), (240, 320, 6), (280, 210, 3), (200, 260, 8),
+              (310, 190, 5), (230, 230, 2), (260, 300, 1)]
+    items = [(rng.integers(0, 256, (h, w, 3), np.uint8), o)
+             for w, h, o in shapes]
+    opts = StitchOptions(gap=4, background=(9, 8, 7))
+    before = cuda_resize.launches
+    got, m = api.stitch_grid(items, cols=3, options=opts,
+                             config=RuntimeConfig(device="cuda"),
+                             return_metrics=True)
+    launched = cuda_resize.launches - before
+    want = api.stitch_grid(items, cols=3, options=opts,
+                           config=RuntimeConfig(device="cpu"))
+    np.testing.assert_array_equal(got, want)
+    assert m.strategy == "grid(resident,resident,resident)"
+    assert 0 < launched <= len(items)
+
+
+@pytest.mark.parametrize("shape,k", [((1266, 1170, 3), 32), ((97, 37, 1), 9)])
+def test_overlap_scorer_on_card_matches_numpy(card, shape, k):
+    """The float64 scorer on the card: within 1e-9 of ``_scores_numpy``,
+    the same ordering of the best candidates, and trims equal to the numpy
+    scorer's on a synthetic capture."""
+    from imagestitching_tpu_torch.ops import overlap
+
+    rng = np.random.default_rng(shape[0])
+    region = rng.integers(0, 256, shape, np.uint8)
+    template = np.ascontiguousarray(region[200 % shape[0]:][:k])
+    want = overlap._scores_numpy(region, template)
+    got = overlap._scores(region, template, True)
+    assert np.abs(got - want).max() <= 1e-9
+    np.testing.assert_array_equal(np.argsort(got, kind="stable")[:4],
+                                  np.argsort(want, kind="stable")[:4])
+    base = rng.integers(0, 256, (1500, shape[1], shape[2]), np.uint8)
+    parts = [base[:600], base[450:1100], base[900:]]
+    assert overlap.detect_trims(parts, device=True) == \
+        overlap.detect_trims(parts, device=False) == [0, 150, 200]

@@ -257,10 +257,20 @@ def test_runtime_config_validation(kw):
 
 
 def test_merge_overlap_not_yet_ported():
-    imgs, shapes, _ = _job("gray")
-    with pytest.raises(NotImplementedError):
-        api.stitch_arrays(imgs, options=StitchOptions(merge_overlap=True),
-                          config=CPU)
+    """``merge_overlap`` in ``stitch_arrays``: a gray capture cut into three
+    strips sharing 40 rows merges back to it, equal to the stitch of the
+    pre-trimmed strips and to the JAX package's merge, bit for bit."""
+    rng = np.random.default_rng(12)
+    base = rng.integers(0, 256, (680, 96, 1), np.uint8)
+    parts = [base[:250], base[210:470], base[430:]]
+    got = api.stitch_arrays(parts, options=StitchOptions(merge_overlap=True),
+                            config=CPU)
+    want = api.stitch_arrays([parts[0], parts[1][40:], parts[2][40:]],
+                             options=StitchOptions(), config=CPU)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, base)
+    np.testing.assert_array_equal(got, jax_api.stitch_arrays(
+        parts, options=jax_config.StitchOptions(merge_overlap=True)))
 
 
 def test_taps_not_shared_across_fractional_offsets():

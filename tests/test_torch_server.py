@@ -427,11 +427,20 @@ def test_server_arguments(kw, exc):
 
 
 def test_merge_overlap_not_yet_ported():
-    with server() as s:
-        with pytest.raises(NotImplementedError, match="extensions"):
-            s.submit([rand_img(16, 24), rand_img(16, 24)],
-                     StitchOptions(merge_overlap=True))
-        assert s.stats()["pending"] == 0
+    """A ``merge_overlap`` job is trimmed in ``submit`` (on the server's
+    device, ``serve.merge`` logged) and then batched like any other: the
+    merged pair is the capture it was cut from, bit for bit (twin of
+    tests/test_merge_overlap.py:160-167)."""
+    base = rand_img(64, 500)
+    a, b = base[:260], base[210:]
+    get_logger().clear()
+    with server(max_batch=4) as s:
+        out = s.submit([a, b], StitchOptions(merge_overlap=True)).result(
+            timeout=T)
+        assert s.stats()["pending"] == 0 and s.stats()["jobs"] == 1
+    np.testing.assert_array_equal(out, base)
+    merges = [e for e in get_logger().ring() if e["tag"] == "serve.merge"]
+    assert [e["trims"] for e in merges] == [[0, 50]]
 
 
 def test_cuda_device_without_cuda_raises():

@@ -2,15 +2,21 @@
 their originals on the same inputs.
 
 The port imports nothing of :mod:`imagestitching_tpu`: it keeps its own
-copies of the layout solver, the f64 taps, the oracle, the tiler, the codec
-and ``api.prepare`` (``imagestitching_tpu_torch/{core,runtime,imgio}``,
+copies of the layout solver, the grid planner, the f64 taps, the oracle,
+the tiler, the codec, the decode pool, the caches, the logger, the host
+half of the overlap detector and ``api.prepare``
+(``imagestitching_tpu_torch/{core,runtime,imgio,ops/overlap}``,
 ``config.py``, ``api.py``).  Those copies are the layout contract, so a
-drift between a copy and its original is a fault.  Every test here feeds
-one seeded input (numpy ``default_rng``) to both and asks for equality:
-plans field by field, taps, canvases and decoded pixels bit for bit, byte
-counts exactly.  No tolerance.
+drift between a copy and its original is a fault.  The behaviour tests
+feed one seeded input (numpy ``default_rng``) to both and ask for
+equality: plans field by field, taps, canvases and decoded pixels bit for
+bit, byte counts exactly.  No tolerance.  The last tests hold each copy's
+code, parsed with ``ast`` and with its docstrings taken out, equal to its
+original's, module by module (and function by function for
+``ops/overlap.py``).
 """
 
+import ast
 import dataclasses
 import os
 
@@ -355,3 +361,72 @@ def test_prepare_reads_a_tensor_back_like_its_array():
     for a, b in zip(images, want):
         np.testing.assert_array_equal(a, b)
     assert [s.orientation for s in specs] == [1, 8]
+
+
+# ---------------------------------------------------------------------------
+# the code of each copy, docstrings stripped
+# ---------------------------------------------------------------------------
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: Host modules the port copies whole.  ``imgio/native.py`` (its build
+#: paths) and ``config.py`` (the port's ``RuntimeConfig``) differ by design
+#: and are held by the behaviour tests above.
+_COPIES = ("core/layout", "core/geometry", "core/oracle", "core/grid",
+           "imgio/codec", "imgio/heif", "runtime/decoding", "runtime/cache",
+           "runtime/artifacts", "runtime/logger", "runtime/tiler")
+
+#: Functions of ``ops/overlap.py`` the port keeps as they are (its device
+#: scorer and ``merge_arrays``'s device argument are its own).
+_OVERLAP_HOST = ("_scores_numpy", "detect_pair", "detect_trims",
+                 "apply_trims")
+
+
+def _strip_docstrings(tree):
+    """``tree`` with the docstring of the module and of every class and
+    function taken out."""
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(
+                    body[0].value, ast.Constant) and isinstance(
+                    body[0].value.value, str):
+                node.body = body[1:] or [ast.Pass()]
+    return tree
+
+
+def _tree(package, module):
+    path = os.path.join(_ROOT, package, module + ".py")
+    with open(path) as f:
+        return _strip_docstrings(ast.parse(f.read(), path))
+
+
+@pytest.mark.parametrize("module", _COPIES)
+def test_host_copy_code_equals_its_original(module):
+    """A copy's code, docstrings and comments aside, is its original's: a
+    silent edit to either one fails here."""
+    assert ast.dump(_tree("imagestitching_tpu_torch", module)) == ast.dump(
+        _tree("imagestitching_tpu", module))
+
+
+@pytest.mark.parametrize("name", _OVERLAP_HOST)
+def test_overlap_host_function_equals_its_original(name):
+    def function(package):
+        found = [n for n in _tree(package, "ops/overlap").body
+                 if isinstance(n, ast.FunctionDef) and n.name == name]
+        assert len(found) == 1, (package, name)
+        return ast.dump(found[0])
+
+    assert function("imagestitching_tpu_torch") == function(
+        "imagestitching_tpu")
+
+
+def test_docstring_strip_sees_code_changes():
+    """The comparison is not blind: one changed constant in a copy's code
+    makes the dumps differ, and a changed docstring does not."""
+    src = 'def f(x):\n    """Doc."""\n    return x + 1\n'
+    same = _strip_docstrings(ast.parse(src.replace("Doc.", "Other.")))
+    other = _strip_docstrings(ast.parse(src.replace("+ 1", "+ 2")))
+    want = ast.dump(_strip_docstrings(ast.parse(src)))
+    assert ast.dump(same) == want and ast.dump(other) != want
