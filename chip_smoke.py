@@ -99,16 +99,34 @@ Phases, one line each; any failure exits non-zero and prints no result:
     ``make_preview(box_w=750)``: one launch of #1, equal to its plain
     version bit for bit, within 1 of ``device=False``; CUDA-event and busy
     times beside the plain version, one ``F.interpolate`` call and the
-    bound.
+    bound;
+22. space-sharded: config 4-EXIF from arrays on a ``(1, 4)`` space mesh
+    that names ``cuda:0`` four times (one card: bits, launches and memory,
+    not multi-card speed), at the default budget: strategy
+    ``space-sharded``, equal to phase 13's resident canvas bit for bit,
+    oracle spots within 1 (band seams too), copy spans exact, kernel #3
+    launched once per (band, resampled placement) pair counted from the
+    plan; a ``(1, 2)`` mesh over the budget by ``tiler.sharded_peak_bytes``
+    rejected to the ladder; a real OOM inside the sharded compose (phase
+    14's memory cap) demoted, the same canvas; #3's times at one band
+    window beside its plain version, ``F.interpolate`` and the bound; the
+    per-device peak beside the estimate; the wall split into upload,
+    compose and gather;
+23. jobs mesh: config 5's 64 jobs on a ``(4, 1)`` jobs mesh of ``cuda:0``
+    four times, 4 x 8 launches of #2, equal to the single-card batch; a
+    batch of 62 refused as not divisible; ``StitchServer(use_mesh=True)``
+    over every card serving config 3 jobs equal to the plain server's.
 
 Phases 4-15 pass ``overlap="never"``: they read the non-overlapped path,
 which 9-image jobs leave for the overlapped scheduler by default.  Each
 kernel's launch count is read from its own path: phase 4 for the single-job
 kernel, phase 9 for the batched one, phase 13's banded run for the windowed
 one, phase 16 for #1 and #3 on the overlapped scheduler
-(``launches_overlapped``), and phases 19, 20 and 21 for #1 on the merged
+(``launches_overlapped``), phases 19, 20 and 21 for #1 on the merged
 stitch, the grid and the preview (``launches_merge``, ``launches_grid``,
-``launches_preview``), each with the counts set to 0 just before.  The
+``launches_preview``), phase 22 for #3 space-sharded
+(``launches_space_sharded``) and phase 23 for #2 on the jobs mesh
+(``launches_jobs_mesh``), each with the counts set to 0 just before.  The
 last two lines are a JSON record of the kernels and the device line
 ``{"ok": true, "device": {...}}``.  Imports nothing of the JAX package.
 Before them the card's name and power limit, as ``nvidia-smi`` gives them.
@@ -1898,6 +1916,278 @@ def phase21_preview(dev, smi, items, box_w=750):
     return launched[0], t
 
 
+def _band_pairs(plan, n):
+    """The (band, resampled placement) pairs of an n-way space mesh that
+    meet: kernel #3's launches in one space-sharded job, from the plan."""
+    band = -(-plan.canvas_h // n)
+    return [(k, p) for p in resampled(plan) for k in range(n)
+            if max(p.row_span[0], k * band) < min(p.row_span[1],
+                                                   (k + 1) * band)]
+
+
+def phase22_space_sharded(dev, smi, plan, opts, imgs, items, ref):
+    """Config 4-EXIF from arrays on a (1, 4) space mesh of ``cuda:0`` four
+    times, through ``imagestitching_tpu_torch.stitch`` at the default
+    budget: ``space-sharded``, equal to phase 13's resident canvas bit for
+    bit, oracle spots within 1 (band seams, chunk boundaries, edges), copy
+    spans exact, kernel #3 launched once per (band, resampled placement)
+    pair; a (1, 2) mesh rejected by the budget gate; a real OOM inside the
+    sharded compose demoted to the single-card ladder.  Then #3's times at
+    one band window, the per-device peak beside the estimate and the wall
+    split into upload, compose and gather.  Returns (launches of #3, the
+    yardsticks)."""
+    import torch
+    import imagestitching_tpu_torch as itt
+    from imagestitching_tpu_torch import RuntimeConfig
+    from imagestitching_tpu_torch.config import budget_from_device
+    from imagestitching_tpu_torch.core import geometry, oracle
+    from imagestitching_tpu_torch.ops import cuda_resize
+    from imagestitching_tpu_torch.ops.window import WindowPlan
+    from imagestitching_tpu_torch.parallel.mesh import make_mesh
+    from imagestitching_tpu_torch.parallel.sharding import ShardedStitch
+    from imagestitching_tpu_torch.runtime import tiler
+    from imagestitching_tpu_torch.runtime.logger import (StitchLogger,
+                                                         set_logger)
+
+    n = 4
+    mesh4 = make_mesh((1, n), devices=[str(dev)] * n)
+    mesh2 = make_mesh((1, 2), devices=[str(dev)] * 2)
+    est4 = tiler.sharded_peak_bytes(plan, n, 3)
+    est2 = tiler.sharded_peak_bytes(plan, 2, 3)
+    cfg = RuntimeConfig(device=str(dev), overlap="never", mesh=mesh4)
+    check(est4 <= cfg.budget.hbm_bytes < est2, f"estimates (1, 4) {est4}, "
+          f"(1, 2) {est2} bytes against the budget {cfg.budget.hbm_bytes}")
+    pairs = _band_pairs(plan, n)
+    log = StitchLogger()
+    set_logger(log)
+    try:
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        t0 = time.perf_counter()
+        out, m = itt.stitch(items, options=opts, config=cfg,
+                            return_metrics=True)
+        wall = time.perf_counter() - t0
+        launched = _launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        check(m.strategy == "space-sharded", f"(1, 4) mesh ran {m.strategy}")
+        check(launched == (0, 0, len(pairs)), f"space-sharded launches "
+              f"{launched}, expected (0, 0, {len(pairs)})")
+        check(np.array_equal(out, ref), "space-sharded canvas differs from "
+              "the resident one")
+        band = -(-plan.canvas_h // n)
+        worst = 0
+        for lo in [k * band for k in range(1, n)] + [
+                e for p in resampled(plan) for e in p.row_span]:
+            want = oracle.stitch_rows(plan, imgs, max(0, lo - 2), lo + 2)
+            lo = max(0, lo - 2)
+            worst = max(worst, int(np.abs(
+                out[lo:lo + want.shape[0]].astype(np.int16)
+                - want.astype(np.int16)).max()))
+        worst_c, copy_max = _oracle_spots(plan, imgs, out, 256)
+        worst = max(worst, worst_c)
+        check(worst <= 1 and copy_max == 0, f"space-sharded vs oracle "
+              f"{worst}, copy spans {copy_max}")
+
+        # the gate: (1, 2) estimates over the budget -> the ladder
+        log.clear()
+        out2, m2 = itt.stitch(items, options=opts, config=RuntimeConfig(
+            device=str(dev), overlap="never", mesh=mesh2),
+            return_metrics=True)
+        rejects = [e for e in log.ring()
+                   if e["tag"] == "pipeline.sharded_budget_reject"]
+        check(len(rejects) == 1 and m2.strategy == "resident",
+              f"(1, 2) mesh: {m2.strategy}, rejects {rejects}")
+        check(np.array_equal(out2, ref), "(1, 2) mesh canvas differs")
+        del out2
+
+        # a real OOM inside the sharded compose: a cap the estimate does
+        # not see (it fits the budget) under the sources plus the bands
+        canvas_bytes = 3 * plan.canvas_w * plan.canvas_h
+        src_max = max(a.nbytes for a in imgs)
+        total = torch.cuda.get_device_properties(dev).total_memory
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        headroom = canvas_bytes + 3 * src_max
+        torch.cuda.set_per_process_memory_fraction(
+            (reserved + headroom) / total, dev)
+        log.clear()
+        try:
+            t0 = time.perf_counter()
+            out3, m3 = itt.stitch(items, options=opts, config=RuntimeConfig(
+                device=str(dev), overlap="never", mesh=mesh4,
+                budget=budget_from_device(str(dev))), return_metrics=True)
+            wall3 = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        retries = [e["failed"] for e in log.ring()
+                   if e["tag"] == "pipeline.oom_retry"]
+        check(retries[:1] == ["space-sharded"] and m3.strategy != "space-"
+              "sharded", f"capped: {m3.strategy} after {retries}")
+        check(np.array_equal(out3, ref), f"{m3.strategy} after the sharded "
+              "OOM differs from the resident canvas")
+        del out3
+    finally:
+        set_logger(StitchLogger())
+
+    # the wall split of a warm sharded job, and #3 at one band window
+    ss = ShardedStitch(plan, mesh4)
+    check(np.array_equal(ss([a for a, _ in items]), ref), "ShardedStitch "
+          "differs from the resident canvas")
+    split = ss.split
+    k, p = pairs[0]
+    r0, r1 = p.row_span
+    wp = WindowPlan(p, plan.filter, windows=[
+        (max(r0, lo) - r0, min(r1, lo + band) - r0)
+        if max(r0, lo) < min(r1, lo + band) else (0, 0)
+        for lo in range(0, n * band, band)])
+    a, valid, s_lo = wp.chunk_window(k)
+    oriented = torch.from_numpy(np.ascontiguousarray(geometry.orient_array(
+        imgs[p.index], p.orientation))).to(dev)
+    crop = oriented[s_lo:s_lo + wp.crop_rows]
+    taps = taps_on(p, plan.filter, dev)
+    region = torch.empty((valid, wp.n_cols, 3), dtype=torch.uint8,
+                         device=dev)
+    launch = cuda_resize.WindowLauncher(*taps, region,
+                                        (wp.crop_rows, wp.disp_w, 3))
+
+    def kernel():
+        launch(crop, a, s_lo, valid)
+
+    def plain():
+        region[:] = cuda_resize.resize_place_window_ref(crop, *taps, a, s_lo,
+                                                        valid)
+
+    kernel()
+    d = int((region.int() - cuda_resize.resize_place_window_ref(
+        crop, *taps, a, s_lo, valid).int()).abs().max())
+    check(d == 0, f"#3 at the band window vs plain max |diff| {d}")
+    t = time_four(kernel, plain, None, interp_call(crop, 1, valid, wp.n_cols,
+                                                    plan.filter),
+                  reps=10, inner=5, device_reps=10)
+    i0, w = wp.ri0[a:a + valid] - s_lo, wp.rw[a:a + valid]
+    nbytes = (footprint_bytes(i0, w, wp.crop_rows, wp.ci0, wp.cw, wp.disp_w,
+                              3) + valid * wp.n_cols * 3)
+    t["bound_ms"] = bound_ms(nbytes)
+    t["worst"] = d
+    say(f"phase22 config4-EXIF space-sharded on a (1, {n}) mesh of {dev} x "
+        f"{n} (one card: the shards share it; bits, launches and memory, not "
+        f"multi-card speed), default budget: strategy {m.strategy}, "
+        f"launches #1/#2/#3 {launched} ({len(pairs)} (band, resampled "
+        f"placement) pairs, band {band} rows), equal to phase 13's resident "
+        f"canvas, oracle spots max |diff| {worst} copy spans {copy_max} | "
+        f"wall {wall:.4f} s compute {m.compute_s:.4f} s h2d {m.h2d_bytes} | "
+        f"per-device peak {peak / 1e6:.1f} MB, estimate (1, 4) "
+        f"{est4 / 1e6:.1f} MB, (1, 2) {est2 / 1e6:.1f} MB, budget "
+        f"{cfg.budget.hbm_bytes / 1e6:.1f} MB | (1, 2): "
+        f"pipeline.sharded_budget_reject -> {m2.strategy}, equal | cap "
+        f"reserved+{headroom / 1e6:.1f} MB: oom_retry {retries} -> "
+        f"{m3.strategy} in {wall3:.4f} s, equal | ShardedStitch warm split "
+        f"upload {split['upload_s']:.4f} s compose {split['compose_s']:.4f} "
+        f"s gather {split['gather_s']:.4f} s | {smi}")
+    say(f"phase22 #3 at band {k}'s window of placement {p.index} (crop "
+        f"{tuple(crop.shape)} -> region {valid}x{wp.n_cols}x3; ms per launch, "
+        f"CUDA events median of 10x5 in two rounds; profiler busy in "
+        f"brackets): kernel {t['kernel_ms']:.4f} ({t['kernel_busy']:.4f}) "
+        f"F.interpolate {t['library_ms']:.4f} ({t['library_busy']:.4f}) "
+        f"plain {t['plain_ms']:.4f} ({t['plain_busy']:.4f}) bound "
+        f"{t['bound_ms']:.4f} ({nbytes} bytes at 3.35 TB/s) | max |diff| {d} "
+        f"| {smi}")
+    return launched[2], t
+
+
+def phase23_jobs_mesh(dev, smi, plan, stacks, items3, opts3):
+    """Config 5's 64 jobs on a (4, 1) jobs mesh of ``cuda:0`` four times:
+    4 x 16 jobs, one launch of #2 per resampled placement per shard, equal
+    bit for bit to the single-card batch; a batch of 62 refused as not
+    divisible; ``StitchServer(use_mesh=True)`` on a mesh of every card
+    serving config 3 jobs equal to the plain server's; then kernel #4's
+    slot timed on ``F.interpolate`` and #1.  Returns the launches of #2 on
+    the mesh."""
+    import torch
+    from imagestitching_tpu_torch import RuntimeConfig, StitchServer
+    from imagestitching_tpu_torch.ops import cuda_resize
+    from imagestitching_tpu_torch.parallel.batch import BatchedStitch
+    from imagestitching_tpu_torch.parallel.mesh import make_mesh
+
+    batch = stacks[0].shape[0]
+    n_res = len(resampled(plan))
+    mesh = make_mesh((4, 1), devices=[str(dev)] * 4)
+    t0 = time.perf_counter()
+    single = BatchedStitch(plan, batch, device=dev)(stacks)
+    wall1 = time.perf_counter() - t0
+    bs = BatchedStitch(plan, batch, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    got = bs(stacks)
+    wall4 = time.perf_counter() - t0
+    launched = _launch_counts()
+    check(launched == (0, 4 * n_res, 0), f"jobs mesh launches {launched}, "
+          f"expected (0, {4 * n_res}, 0)")
+    check(np.array_equal(got, single), "jobs mesh batch differs from the "
+          "single-card batch")
+    del got, single
+    try:
+        BatchedStitch(plan, batch - 2, mesh=mesh)
+        fail(f"a batch of {batch - 2} over 4 jobs rows was accepted")
+    except ValueError as e:
+        check("divisible" in str(e), f"batch of {batch - 2}: {e}")
+
+    rng = np.random.default_rng(23)
+    jobs = [[(rng.integers(0, 256, a.shape, np.uint8), o) for a, o in items3]
+            for _ in range(4)]
+    outs = {}
+    for use_mesh in (True, False):
+        with StitchServer(max_batch=4, max_wait_s=1.0, use_mesh=use_mesh,
+                          config=RuntimeConfig(device=str(dev))) as server:
+            if use_mesh:
+                unit = server.mesh.shape["jobs"]
+                check(unit == torch.cuda.device_count(), f"use_mesh: jobs "
+                      f"{unit}, cards {torch.cuda.device_count()}")
+            futs = [server.submit([a for a, _ in job], opts3,
+                                  orientations=[o for _, o in job])
+                    for job in jobs]
+            outs[use_mesh] = [f.result(timeout=300) for f in futs]
+    check(all(np.array_equal(x, y) for x, y in zip(outs[True], outs[False])),
+          "use_mesh server differs from the plain server")
+
+    # kernel #4's slot (benchmarks/profile_bf16_stage.py: config 5's slot
+    # 0, 1920x1080 into 1024x576), not ported: one F.interpolate call and
+    # #1 on it, beside the bound of the uint8 source read once and the slot
+    # written once
+    p = plan.placements[0]
+    src = src_on(stacks[0][0], dev)
+    taps = taps_on(p, plan.filter, dev)
+    n_rows, n_cols = taps[0].shape[0], taps[2].shape[0]
+    slot = torch.empty((n_rows, n_cols, 3), dtype=torch.uint8, device=dev)
+    t4 = time_four(
+        lambda: cuda_resize.resize_place(src, 1, *taps, slot, 0, 0),
+        lambda: slot.copy_(cuda_resize.resize_place_ref(src, 1, *taps)),
+        None, interp_call(src, 1, n_rows, n_cols, plan.filter),
+        reps=10, inner=5, device_reps=10)
+    t4["bound_ms"] = bound_ms(src.numel() + slot.numel())
+    say(f"phase23 config5 jobs mesh ({batch} jobs on a (4, 1) mesh of {dev} "
+        f"x 4; one card: bits and launches, not multi-card speed): launches "
+        f"#1/#2/#3 {launched} ({n_res} resampled placements x 4 shards of "
+        f"{batch // 4}), equal to the single-card batch | wall mesh "
+        f"{wall4:.4f} s, single card {wall1:.4f} s | batch of {batch - 2}: "
+        f"ValueError (divisible) | StitchServer(use_mesh=True): jobs axis "
+        f"{unit} (every card), {len(jobs)} config 3 jobs equal to the plain "
+        f"server's | {smi}")
+    say(f"phase23 kernel #4's slot ({p.raw_w}x{p.raw_h} -> {n_cols}x{n_rows}"
+        f", not ported; ms per call, CUDA events median of 10x5 in two "
+        f"rounds, profiler busy in brackets): F.interpolate "
+        f"{t4['library_ms']:.4f} ({t4['library_busy']:.4f}) #1 "
+        f"{t4['kernel_ms']:.4f} ({t4['kernel_busy']:.4f}) plain "
+        f"{t4['plain_ms']:.4f} bound {t4['bound_ms']:.6f} "
+        f"({src.numel() + slot.numel()} bytes at 3.35 TB/s) | {smi}")
+    return launched[1]
+
+
 def main() -> None:
     import argparse
 
@@ -2135,17 +2425,15 @@ def main() -> None:
     worst8 = phase8_batch_vs_plain(cases, dev)
     plan5, stacks5, launches5 = phase9_config5(dev, smi, budget_from_device())
     t10 = phase10_batch_times(dev, smi, plan5, stacks5, parent)
-    del stacks5
     phase11_http(dev, smi)
     marks.append(("8-11", time.perf_counter()))
 
     # ---- phases 12-15: streamed, banded (kernel #3) and the OOM ladder
     worst12 = phase12_window_vs_plain(cases, dev)
-    plan4, opts4, _, items4, ref4, launches_w = phase13_config4(dev, smi)
+    plan4, opts4, imgs4, items4, ref4, launches_w = phase13_config4(dev,
+                                                                    smi)
     phase14_ladder(dev, smi, plan4, opts4, items4, ref4)
-    del ref4
     t15 = phase15_window_times(dev, smi, plan4, opts4, items4, parent)
-    del items4
     marks.append(("12-15", time.perf_counter()))
 
     # ---- phases 16-18: the file entry point -- the overlapped scheduler,
@@ -2167,6 +2455,17 @@ def main() -> None:
     launches_preview, t21 = phase21_preview(dev, smi, items20)
     del items20
     marks.append(("21", time.perf_counter()))
+
+    # ---- phases 22-23: the mesh paths on a mesh that repeats cuda:0 --
+    # kernel #3 space-sharded, kernel #2 over a jobs mesh
+    launches_sharded, t22 = phase22_space_sharded(dev, smi, plan4, opts4,
+                                                  imgs4, items4, ref4)
+    del imgs4, items4, ref4
+    marks.append(("22", time.perf_counter()))
+    launches_jobs_mesh = phase23_jobs_mesh(dev, smi, plan5, stacks5, items,
+                                           opts3)
+    del stacks5
+    marks.append(("23", time.perf_counter()))
     say("seconds by phase (host clock): " + " ".join(
         f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in
         enumerate(marks[1:])) + f" | total {marks[-1][1] - marks[0][1]:.1f}")
@@ -2189,7 +2488,10 @@ def main() -> None:
     # of phase 16 (its resident plan for #1, its banded budget for #3);
     # "launches_merge", "launches_grid" and "launches_preview": #1 on the
     # merged stitch of phase 19, the top-aligned grid of phase 20 and the
-    # preview of phase 21; "preview": #1's yardsticks at phase 21's launch
+    # preview of phase 21; "preview": #1's yardsticks at phase 21's launch;
+    # "launches_jobs_mesh": #2 on phase 23's jobs mesh;
+    # "launches_space_sharded": #3 on phase 22's space-sharded job, and
+    # "space_sharded" its yardsticks at one band window
     record = {"kernels": [
         entry("resize_place", REPLACES, launches_main,
               max(worst_all, t6["worst"], t21["worst"]), t6,
@@ -2201,10 +2503,17 @@ def main() -> None:
                        "library_ms": r(t21["library_ms"]),
                        "bound_ms": r(t21["bound_ms"])}),
         entry("resize_place_batch", REPLACES_BATCH, launches5,
-              max(worst8, t10["worst"]), t10),
+              max(worst8, t10["worst"]), t10,
+              launches_jobs_mesh=launches_jobs_mesh),
         entry("resize_place_window", REPLACES_WINDOW, launches_w,
-              max(worst12, t15["worst"]), t15,
-              launches_overlapped=launches_wov)]}
+              max(worst12, t15["worst"], t22["worst"]), t15,
+              launches_overlapped=launches_wov,
+              launches_space_sharded=launches_sharded,
+              space_sharded={"ms": r(t22["kernel_ms"]),
+                             "busy_ms": r(t22["kernel_busy"]),
+                             "plain_ms": r(t22["plain_ms"]),
+                             "library_ms": r(t22["library_ms"]),
+                             "bound_ms": r(t22["bound_ms"])})]}
     say(json.dumps(record))
     say(f"gpu: {smi}")
     say(json.dumps({"ok": True, "device": {

@@ -452,11 +452,11 @@ def stitch_to_file(items: Sequence[ImageInput],
 
 def _blit_copies(plan, config):
     """``plan_copy_offsets`` gated by the blit-eligibility rule: engine
-    ``auto`` only (explicit engines pin the device path).  None -> use the
-    device pipeline.  There is no total-source-bytes cap: the decode pool's
-    ack window bounds resident decoded bytes at O(window) regardless of job
-    size (runtime/decoding.DecodePool)."""
-    if config.engine != "auto":
+    ``auto`` only (explicit engines pin the device path), no mesh.  None ->
+    use the device pipeline.  There is no total-source-bytes cap: the
+    decode pool's ack window bounds resident decoded bytes at O(window)
+    regardless of job size (runtime/decoding.DecodePool)."""
+    if config.engine != "auto" or config.mesh is not None:
         return None
     from .core import geometry
     return geometry.plan_copy_offsets(plan)

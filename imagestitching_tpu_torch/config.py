@@ -10,9 +10,10 @@ twin is :func:`budget_from_device`.
 
 ``RuntimeConfig`` is the port's own (twin of :159-203): it has the JAX
 package's ``profile``, ``decode_window`` and ``overlap`` with their
-validation, and a ``device`` in place of JAX's implicit platform.  The
-JAX package's ``interpret`` (Pallas interpret mode) has no twin, and
-``mesh`` arrives with the multi-GPU slice.
+validation, a ``device`` in place of JAX's implicit platform, and a
+``mesh`` (:class:`.parallel.mesh.DeviceMesh` in place of a
+``jax.sharding.Mesh``).  The JAX package's ``interpret`` (Pallas interpret
+mode) has no twin.
 """
 
 from __future__ import annotations
@@ -167,6 +168,10 @@ class RuntimeConfig:
     # 25 MB of input, the reference's big-task thresholds), "always" or
     # "never".
     overlap: str = "auto"
+    # Optional parallel.mesh.DeviceMesh: a "space" axis > 1 shards a single
+    # job's canvas row bands across its devices (parallel.sharding); the
+    # server's use_mesh takes its "jobs" axis for batches.
+    mesh: Optional[object] = None
 
     def validate(self) -> "RuntimeConfig":
         if self.engine not in ENGINES:
@@ -188,6 +193,13 @@ class RuntimeConfig:
         if self.decode_window is not None and self.decode_window < 1:
             raise ValueError("decode_window must be >= 1 or None, "
                              f"got {self.decode_window}")
+        if self.mesh is not None:
+            from .parallel.mesh import DeviceMesh   # torch: only with a mesh
+
+            if not isinstance(self.mesh, DeviceMesh):
+                raise ValueError("mesh must be a parallel.mesh.DeviceMesh "
+                                 "(parallel.mesh.make_mesh), got "
+                                 f"{type(self.mesh).__name__}")
         return self
 
 

@@ -9,7 +9,7 @@ writes its region (a copy slice, or the kernel's store) straight into it.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,11 +27,14 @@ def job_channels(plan: LayoutPlan, images: Sequence[np.ndarray]) -> int:
 
 
 def new_canvas(plan: LayoutPlan, channels: int, device,
-               batch_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+               batch_shape: Tuple[int, ...] = (),
+               rows: Optional[int] = None) -> torch.Tensor:
     """``(*batch_shape, canvas_h, canvas_w, channels)`` uint8 on ``device``,
-    background filled (twin of ``assemble_canvas(batch_shape=)``)."""
-    canvas = torch.empty((*batch_shape, plan.canvas_h, plan.canvas_w,
-                          channels), dtype=torch.uint8, device=device)
+    background filled (twin of ``assemble_canvas(batch_shape=)``); with
+    ``rows``, a band of that many canvas rows instead."""
+    h = plan.canvas_h if rows is None else rows
+    canvas = torch.empty((*batch_shape, h, plan.canvas_w, channels),
+                         dtype=torch.uint8, device=device)
     bg = plan.background[:channels]
     if len(set(bg)) == 1:
         canvas.fill_(int(bg[0]))

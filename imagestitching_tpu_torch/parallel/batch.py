@@ -11,15 +11,23 @@ through one placement loop (``ops.cuda_resize.stitch_batch``):
 * ``engine="torch"`` -- the plain whole-job engine on either device, every
   drawn placement resampled; the twin of ``_batched_xla``.
 
+With a ``parallel.mesh.DeviceMesh`` (the twin of the shard_map branch,
+:135-160), the batch is split over the ``jobs`` axis: jobs row j takes jobs
+``[j*b, (j+1)*b)`` (``b = batch / jobs``) and runs them on its first device,
+one launch of kernel #2 per resampled placement.  Jobs are independent, so
+there is no collective.  A 2D mesh replicates over ``space`` in JAX; the
+port computes each jobs shard once.  Every shard is enqueued before any is
+read back into one host array.
+
 PyTorch runs eagerly, so there is nothing to compile per batch size: the
 JAX class's ``jax.jit``, ``ensure_compile_cache`` and
 ``check_plan_feasible`` (the gather kernel has no ``Infeasible``) have no
-twin.  A jobs mesh (the shard_map branch) arrives with the multi-GPU slice.
+twin.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,6 +35,7 @@ import torch
 from ..core.layout import LayoutPlan
 from ..ops import cuda_resize
 from ..runtime.pipeline import resolve_device
+from .mesh import DeviceMesh, job_sharding
 
 ENGINES = ("auto", "cuda", "torch")
 
@@ -36,44 +45,56 @@ class BatchedStitch:
 
     Jobs with mismatched shapes must be bucketed by ``plan.signature()``
     upstream (see serve.server).  The object holds the plan's device taps,
-    so a cache of these objects holds their taps too.
+    so a cache of these objects holds their taps too.  ``device`` is where
+    the batch runs without a mesh; with ``mesh``, each jobs row's first
+    device runs its share (``batch_size`` must divide by the jobs axis).
     """
 
     def __init__(self, plan: LayoutPlan, batch_size: int, channels: int = 3,
-                 engine: str = "auto", device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a jobs mesh (batches data-parallel over several cards) "
-                "arrives with the port's multi-GPU slice")
+                 engine: str = "auto", device="cuda",
+                 mesh: Optional[DeviceMesh] = None):
         if engine not in ENGINES:
             raise ValueError(f"unsupported batch engine {engine!r}")
-        self.device = resolve_device(device)
-        if engine == "cuda" and self.device.type != "cuda":
+        if mesh is None:
+            self.shards = [(resolve_device(device), (0, batch_size))]
+        elif isinstance(mesh, DeviceMesh):
+            self.shards = job_sharding(mesh, batch_size)
+        else:
+            raise ValueError("mesh must be a parallel.mesh.DeviceMesh")
+        self.device = self.shards[0][0]
+        if engine == "cuda" and any(d.type != "cuda" for d, _ in self.shards):
             raise ValueError("engine='cuda' launches the CUDA kernel and "
                              "needs a CUDA device")
         self.plan = plan
         self.batch_size = batch_size
         self.channels = channels
         self.engine = engine
-        self._steps = cuda_resize.plan_steps(plan, self.device)
+        self._steps = {d: cuda_resize.plan_steps(plan, d)
+                       for d, _ in self.shards}
 
-    def _run(self, stacks: Sequence) -> torch.Tensor:
-        return cuda_resize.stitch_batch(self.plan, stacks, self.device,
+    def _shard(self, device: torch.device, stacks: Sequence) -> torch.Tensor:
+        return cuda_resize.stitch_batch(self.plan, stacks, device,
                                         plain=self.engine == "torch",
-                                        steps=self._steps)
+                                        steps=self._steps[device])
+
+    def run_shards(self, stacks: Sequence) -> List[torch.Tensor]:
+        """Enqueue every jobs shard: the ``(b, canvas_h, canvas_w, C)``
+        canvas tensor of each, on its own device, in shard order.  The
+        caller synchronises."""
+        return [self._shard(d, [s[lo:hi] for s in stacks])
+                for d, (lo, hi) in self.shards]
 
     def warm(self) -> None:
-        """Run once on zero inputs made on the device, then fetch one
-        element: no host-to-device staging of B copies of every input and
-        no full-canvas readback."""
-        zeros = [torch.zeros((self.batch_size, p.raw_h, p.raw_w,
-                              self.channels), dtype=torch.uint8,
-                             device=self.device)
-                 for p in self.plan.placements]
-        out = self._run(zeros)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        out[:1, :1, :1, :1].cpu()
+        """Run once on zero inputs made on each shard's device, then fetch
+        one element of each: no host-to-device staging of B copies of every
+        input and no full-canvas readback."""
+        outs = [self._shard(d, [torch.zeros((hi - lo, p.raw_h, p.raw_w,
+                                             self.channels),
+                                            dtype=torch.uint8, device=d)
+                                for p in self.plan.placements])
+                for d, (lo, hi) in self.shards]
+        for out in outs:
+            out[:1, :1, :1, :1].cpu()
 
     def __call__(self, stacked_images: Sequence[np.ndarray]) -> np.ndarray:
         """stacked_images[i]: (B, H_i, W_i, C) uint8 for image slot i;
@@ -86,16 +107,19 @@ class BatchedStitch:
                 raise ValueError(
                     f"slot {p.index}: expected (B={self.batch_size}, H, W, C),"
                     f" got {shape}")
-        out = self._run(stacked_images)
-        if self.device.type == "cuda":
+        outs = self.run_shards(stacked_images)
+        for d in {d for d, _ in self.shards if d.type == "cuda"}:
             # a kernel fault surfaces here, inside the caller's flush
-            torch.cuda.synchronize(self.device)
-        return out.cpu().numpy()
+            torch.cuda.synchronize(d)
+        host = np.empty((self.batch_size, *outs[0].shape[1:]), np.uint8)
+        for (_, (lo, hi)), out in zip(self.shards, outs):
+            torch.from_numpy(host[lo:hi]).copy_(out)
+        return host
 
 
 def stitch_batch(plan: LayoutPlan, stacked_images: Sequence[np.ndarray],
                  engine: str = "auto", device="cuda",
-                 mesh=None) -> np.ndarray:
+                 mesh: Optional[DeviceMesh] = None) -> np.ndarray:
     """One-shot :class:`BatchedStitch` over ``stacked_images``."""
     shape = tuple(stacked_images[0].shape)
     if len(shape) != 4:

@@ -6,11 +6,11 @@ Port of ``imagestitching_tpu/runtime/pipeline.py``: ``StitchMetrics``
 ``_run_banded_pallas`` :407-466, ``_run_banded`` :469-485), the OOM
 classifier ``_is_oom`` (:773-787), the demotion ladder (``_banded_bands``
 :790-804, ``_strategy_ladder`` :807-824), the front door ``run`` (:851-915)
-with the single-device ladder of ``_run_body`` (:1009-1055), and the
-device-free host-blit path ``_host_blit`` (:917-939), and the overlapped
-scheduler ``run_overlapped`` (:512-557, :579-749) with its transport probe
-``_transport_rtt`` (:565-576) and the profiler switch ``_Profile``
-(:493-509).
+with the single-device ladder of ``_run_body`` (:1009-1055) and its
+``space-sharded`` branch (:949-1007), and the device-free host-blit path
+``_host_blit`` (:917-939), and the overlapped scheduler ``run_overlapped``
+(:512-557, :579-749) with its transport probe ``_transport_rtt`` (:565-576)
+and the profiler switch ``_Profile`` (:493-509).
 
 The tiler's ``plan_execution`` picks the first rung from the memory
 budget: ``resident`` (every source and the canvas on the device), then
@@ -19,6 +19,14 @@ on the host, the device holding one source window and one region at a
 time).  A rung that runs out of device memory hands the job to the next one.
 The engine (``auto``/``cuda``: the kernels; ``torch``: the plain version)
 is the same on every rung; nothing demotes from one engine to the other.
+
+With ``RuntimeConfig.mesh`` whose ``space`` axis is larger than 1, a job
+whose per-device estimate (``tiler.sharded_peak_bytes``) fits the budget
+runs first as ``space-sharded`` (``parallel.sharding.ShardedStitch``: row
+bands on kernel #3, one per space index); an OOM there demotes to the
+single-card ladder on ``config.device``.  JAX's second try on the gather
+engine after ``Infeasible`` (:973-980) has no twin: the port's kernel has
+no ``Infeasible``.
 
 :func:`run_overlapped` is the file path's scheduler: the plan is solved from
 image headers, and each source is uploaded and drawn the moment its decode
@@ -393,7 +401,8 @@ def run(plan: LayoutPlan, images: Sequence[np.ndarray],
     Returns ``(canvas, metrics)``: a uint8 HWC numpy array, or with
     ``keep_on_device=True`` the canvas tensor on the configured device when
     the winning strategy holds it there (resident, streamed); the banded
-    strategy and the host engines return numpy either way.
+    and space-sharded strategies and the host engines return numpy either
+    way.
     """
     config = (config or RuntimeConfig()).validate()
     log = get_logger()
@@ -406,8 +415,10 @@ def run(plan: LayoutPlan, images: Sequence[np.ndarray],
         channels = a0.shape[2] if a0.ndim == 3 else 1
 
     # Pure-blit fast path: every drawn placement is an identity copy, so the
-    # canvas is sources + background and no device is touched.
-    if config.engine == "auto" and not keep_on_device and channels == 3:
+    # canvas is sources + background and no device is touched.  A mesh keeps
+    # the device pipeline.
+    if (config.engine == "auto" and config.mesh is None
+            and not keep_on_device and channels == 3):
         copies = geometry.plan_copy_offsets(plan)
         out = _host_blit(plan, images, copies) if copies is not None else None
         if out is not None:
@@ -441,7 +452,15 @@ def run(plan: LayoutPlan, images: Sequence[np.ndarray],
     out, last_oom = None, None
     prof = _Profile(config.profile, device)
     try:
-        for strategy, band in _strategy_ladder(ex, plan):
+        n_space = (config.mesh.shape.get("space", 1)
+                   if config.mesh is not None else 1)
+        if n_space > 1:
+            out, last_oom = _run_space_sharded(plan, images, channels,
+                                               config, n_space, m, log)
+            if out is not None:
+                m.strategy = "space-sharded"
+        for strategy, band in ([] if out is not None
+                               else _strategy_ladder(ex, plan)):
             try:
                 out, m.h2d_bytes = _run_rung(strategy, band, plan, images,
                                              channels, config, device,
@@ -475,6 +494,42 @@ def run(plan: LayoutPlan, images: Sequence[np.ndarray],
               mp_per_sec=round(m.mp_per_sec, 1))
     progress("composite", 1.0)
     return out, m
+
+
+def _run_space_sharded(plan: LayoutPlan, images: Sequence[np.ndarray],
+                       channels: int, config: RuntimeConfig, n_space: int,
+                       m: StitchMetrics, log
+                       ) -> Tuple[Optional[np.ndarray],
+                                  Optional[BaseException]]:
+    """The space-sharded attempt: ``(canvas, None)``, or ``(None, the OOM)``
+    when a device ran out of memory, or ``(None, None)`` when the
+    per-device estimate is over the budget.  Every other error propagates.
+    """
+    est = tiler.sharded_peak_bytes(plan, n_space, channels)
+    if est > config.budget.hbm_bytes:
+        log.event("pipeline.sharded_budget_reject",
+                  est_per_device_mb=round(est / 1e6, 1),
+                  budget_mb=round(config.budget.hbm_bytes / 1e6, 1))
+        return None, None
+    from ..parallel.sharding import ShardedStitch
+
+    try:
+        sharded = ShardedStitch(plan, config.mesh, channels,
+                                engine=config.engine)
+        out = sharded(images)
+    except Exception as e:  # noqa: BLE001 — OOM classification
+        if not _is_oom(e):
+            raise
+        # the estimate admitted the mesh but a device ran out: the bands
+        # and sources die with the traceback's frames, then the single-card
+        # ladder runs
+        traceback.clear_frames(e.__traceback__)
+        log.event("pipeline.oom_retry", failed="space-sharded", band=None)
+        return None, e
+    m.h2d_bytes = sharded.h2d_bytes
+    log.event("pipeline.space_sharded", engine=config.engine,
+              shards=n_space)
+    return out, None
 
 
 def _host_blit(plan, images, copies) -> Optional[np.ndarray]:

@@ -18,8 +18,14 @@ server padded to a power of two to bound recompiles).  There is no
 ``Infeasible``, so ``engine="auto"`` is never demoted per signature: every
 placement, however deep its downscale, runs on the kernel.  A
 ``merge_overlap`` job is trimmed in the caller's thread, its overlaps scored
-on the server's device, before it is keyed.  ``use_mesh`` arrives with the
-multi-GPU slice.
+on the server's device, before it is keyed.
+
+With ``use_mesh=True`` the batches run data-parallel over a mesh's ``jobs``
+axis (``BatchedStitch(mesh=)``): the mesh is ``config.mesh`` when the caller
+set one, else ``parallel.mesh.make_mesh()`` over every card.  The memory
+cap multiplies by the jobs axis and rounds down to a multiple of it, and a
+flush pads with zero jobs up to the next multiple and drops their canvases
+(twins of ``_effective_cap``, ``_padded_batch`` and ``_batch_cap``).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from .. import api as _api
 from ..config import CanvasLimits, RuntimeConfig, StitchOptions
 from ..core.layout import ImageSpec, LayoutPlan, solve
 from ..parallel.batch import ENGINES, BatchedStitch
+from ..parallel.mesh import make_mesh
 from ..runtime import tiler
 from ..runtime.logger import get_logger
 from ..runtime.pipeline import resolve_device
@@ -82,6 +89,8 @@ class StitchServer:
     device and its plain version on the CPU; ``"cuda"`` the kernel only;
     ``"torch"`` the plain whole-job engine.  The device is
     ``config.device``; a CUDA device on a host without CUDA raises here.
+    ``use_mesh``: batches over the ``jobs`` axis of ``config.mesh``, or of
+    a mesh of every card (which raises on a host without CUDA).
     """
 
     def __init__(self, max_batch: int = 64, max_wait_s: float = 0.005,
@@ -90,10 +99,6 @@ class StitchServer:
                  max_queue: int = 1024, max_signatures: int = 32):
         if engine not in ENGINES:
             raise ValueError(f"unsupported server engine {engine!r}")
-        if use_mesh:
-            raise NotImplementedError(
-                "use_mesh (a jobs mesh over several cards) arrives with the "
-                "port's multi-GPU slice")
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
         self.engine = engine
@@ -102,6 +107,10 @@ class StitchServer:
         if engine == "cuda" and self.device.type != "cuda":
             raise ValueError("engine='cuda' launches the CUDA kernel and "
                              "needs a CUDA device")
+        self.mesh = None
+        if use_mesh:
+            self.mesh = (self.config.mesh if self.config.mesh is not None
+                         else make_mesh())
         # bounded admission = explicit backpressure: reject at submit
         # instead of buffering without bound
         self.max_queue = max_queue
@@ -266,8 +275,10 @@ class StitchServer:
                 f"{batch_sizes!r}") from e
         if not sizes:
             raise ValueError("batch_sizes must be non-empty")
-        cap = self._batch_cap(plan, channels)
-        targets = sorted({max(1, min(b, self.max_batch, cap)) for b in sizes})
+        cap = self._effective_cap(plan, channels)
+        targets = sorted({self._padded_batch(max(1, min(b, self.max_batch,
+                                                         cap)))
+                          for b in sizes})
         futs: List[Future] = []
         for b in targets:
             self._admit()
@@ -408,17 +419,37 @@ class StitchServer:
         if key not in per_size:
             per_size[key] = BatchedStitch(plan, batch, channels,
                                           engine=self.engine,
-                                          device=self.device)
+                                          device=self.device, mesh=self.mesh)
         return per_size[key]
+
+    def _effective_cap(self, plan: LayoutPlan, channels: int) -> int:
+        """The memory cap, rounded down to a jobs-axis multiple under a
+        mesh.  Shared by :meth:`_flush_started` and :meth:`warmup`, so a
+        warmed size is one a real flush can select."""
+        cap = self._batch_cap(plan, channels)
+        if self.mesh is not None:
+            unit = self.mesh.shape["jobs"]
+            cap = max(unit, (cap // unit) * unit)
+        return cap
+
+    def _padded_batch(self, b: int) -> int:
+        """The batch a flush of ``b`` jobs runs: ``b``, or under a mesh the
+        next multiple of the jobs axis (the flush pads with zero jobs)."""
+        if self.mesh is None:
+            return b
+        unit = self.mesh.shape["jobs"]
+        return -(-b // unit) * unit
 
     def _batch_cap(self, plan: LayoutPlan, channels: int) -> int:
         """Most jobs per flush under ``config.budget``: bounds the batch's
         estimated device peak (``tiler.resident_peak_bytes`` per job)
-        before launch instead of relying on an OOM.  Shared by
-        :meth:`_flush_started` and :meth:`warmup` (the JAX server's
-        ``_effective_cap`` also rounded it to a mesh multiple)."""
+        before launch instead of relying on an OOM.  A mesh multiplies it:
+        each jobs row holds batch / jobs of the jobs."""
         per_job = max(1, tiler.resident_peak_bytes(plan, channels))
-        return max(1, int(self.config.budget.hbm_bytes // per_job))
+        cap = max(1, int(self.config.budget.hbm_bytes // per_job))
+        if self.mesh is not None:
+            cap *= self.mesh.shape["jobs"]
+        return cap
 
     def _flush(self, jobs: List[_Job]) -> None:
         # the cancellation gate runs exactly once per job (a second
@@ -431,7 +462,7 @@ class StitchServer:
             return
         plan = jobs[0].plan
         channels = _job_channels(jobs[0])
-        cap = self._batch_cap(plan, channels)
+        cap = self._effective_cap(plan, channels)
         if len(jobs) > cap:
             self._log.event("serve.batch_capped", n=len(jobs), cap=cap,
                             canvas=(plan.canvas_w, plan.canvas_h))
@@ -441,10 +472,15 @@ class StitchServer:
         try:
             t0 = time.perf_counter()
             b = len(jobs)
-            stacks = [np.stack([j.images[slot] for j in jobs])
-                      for slot in range(len(plan.placements))]
+            padded = self._padded_batch(b)
+            stacks = []
+            for slot in range(len(plan.placements)):
+                arrs = [j.images[slot] for j in jobs]
+                # zero jobs up to a jobs-axis multiple; their canvases drop
+                arrs += [np.zeros_like(arrs[0])] * (padded - b)
+                stacks.append(np.stack(arrs))
             t_stack = time.perf_counter() - t0
-            out = self._get_compiled(plan, b, channels)(stacks)
+            out = self._get_compiled(plan, padded, channels)(stacks)
             # stats before resolving: a client woken by its future sees
             # stats() that include its job.  Latency accumulates only here,
             # so the split-retry below does not count a wait twice.

@@ -24,6 +24,7 @@ from imagestitching_tpu_torch.core import geometry
 from imagestitching_tpu_torch.core.layout import ImageSpec, solve
 from imagestitching_tpu_torch.ops import cuda_resize
 from imagestitching_tpu_torch.parallel import batch
+from imagestitching_tpu_torch.parallel.mesh import make_mesh
 
 # name: ([(raw w, raw h, orientation)], options, channels)
 _CASES = {
@@ -154,7 +155,8 @@ def test_batched_rejects_mixed_channels():
 @pytest.mark.parametrize("kw,exc", [
     (dict(engine="pallas"), ValueError),
     (dict(engine="cuda", device="cpu"), ValueError),
-    (dict(mesh=object()), NotImplementedError),
+    # a batch of 2 over a jobs axis of 4: not divisible
+    (dict(mesh=make_mesh(devices=["cpu"] * 4)), ValueError),
 ])
 def test_batched_stitch_arguments(kw, exc):
     plan = solve([ImageSpec(16, 16)], StitchOptions(supersample=False))
@@ -176,7 +178,9 @@ def test_warm_runs_a_zero_batch():
     plan, _ = _case("mixed")
     bs = batch.BatchedStitch(plan, 4, device="cpu")
     bs.warm()
-    assert bs._steps is cuda_resize.plan_steps(plan, torch.device("cpu"))
+    cpu = torch.device("cpu")
+    assert bs._steps == {cpu: cuda_resize.plan_steps(plan, cpu)}
+    assert bs._steps[cpu] is cuda_resize.plan_steps(plan, cpu)
 
 
 def _wrapper_operands(b=3, c=3):

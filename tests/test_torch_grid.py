@@ -9,7 +9,7 @@ port's pipeline on ``RuntimeConfig(device="cpu")`` (the kernel's plain
 version); it is held within 1 uint8 step of JAX's ``stitch_grid``
 (``engine="xla"``) and of the float64 oracle assembled per column from
 JAX's plan, and bit-exact where every column is a pure copy.  The mesh case
-(tests/test_grid.py:162) waits for the port's multi-GPU slice.
+(tests/test_grid.py:162) is in tests/test_torch_parallel.py.
 """
 
 import base64

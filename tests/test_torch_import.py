@@ -6,8 +6,9 @@ the import checks run in fresh subprocesses: once as they are, and once
 more with a ``sys.meta_path`` finder that makes ``imagestitching_tpu``
 unimportable, so the port's entry points (the CPU stitch, the ladder, the
 server, ``serve.http --help``, the CLI's ``--help``, a CPU CLI job, the
-top-level names and the extensions: grid, merge and preview) are shown to
-run on its own copies of the host layers.  An AST walk over every module
+top-level names, the extensions: grid, merge and preview, and the mesh
+paths: a space-sharded job and a batch over a jobs mesh of ``cpu``
+devices) are shown to run on its own copies of the host layers.  An AST walk over every module
 of the port and over ``chip_smoke.py`` finds no import of ``jax`` or
 ``imagestitching_tpu``; the port's top level exports the JAX package's
 names, eagerly and lazily, under the same split.
@@ -149,12 +150,38 @@ assert "jax" not in sys.modules, sorted(
 """
 
 
+_CPU_MESH = """
+import sys
+import numpy as np
+import imagestitching_tpu_torch as itt
+from imagestitching_tpu_torch.core.layout import ImageSpec, solve
+from imagestitching_tpu_torch.parallel import batch, mesh, sharding
+rng = np.random.default_rng(4)
+specs = [ImageSpec(60, 40, 6), ImageSpec(40, 30)]
+imgs = [rng.integers(0, 256, (s.raw_h, s.raw_w, 3), np.uint8) for s in specs]
+cfg = itt.RuntimeConfig(device="cpu",
+                        mesh=mesh.make_mesh((1, 4), devices=["cpu"] * 4))
+out, m = itt.stitch_arrays(imgs, specs, itt.StitchOptions(gap=2), cfg,
+                           return_metrics=True)
+assert m.strategy == "space-sharded", m
+plan = solve(specs, itt.StitchOptions(gap=2))
+stacks = [np.stack([a] * 4) for a in imgs]
+got = batch.BatchedStitch(plan, 4, mesh=mesh.make_mesh(
+    devices=["cpu"] * 2))(stacks)
+assert np.array_equal(got[3], out)
+import torch
+assert not torch.cuda.is_initialized()
+assert "jax" not in sys.modules, sorted(
+    m for m in sys.modules if m.split(".")[0] == "jax")
+"""
+
+
 @pytest.mark.parametrize("script", [_IMPORT_ONLY, _CPU_STITCH,
                                     _CPU_LADDER, _SERVE_IMPORT, _CPU_CLI,
-                                    _TOP_LEVEL, _CPU_EXTENSIONS],
+                                    _TOP_LEVEL, _CPU_EXTENSIONS, _CPU_MESH],
                          ids=["import", "cpu-stitch", "cpu-ladder",
                               "serve-import", "cpu-cli", "top-level",
-                              "cpu-extensions"])
+                              "cpu-extensions", "cpu-mesh"])
 def test_port_never_loads_jax(script):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=_ROOT,
@@ -197,9 +224,10 @@ _HELP_NEEDLE = {_SERVE_HELP: "--max-batch", _CLI_HELP: "--device"}
 @pytest.mark.parametrize("script,argv", [
     (_IMPORT_ONLY, []), (_CPU_STITCH, []), (_CPU_LADDER, []),
     (_SERVE_IMPORT, []), (_SERVE_HELP, ["--help"]), (_CLI_HELP, ["--help"]),
-    (_CPU_CLI, []), (_TOP_LEVEL, []), (_CPU_EXTENSIONS, [])],
+    (_CPU_CLI, []), (_TOP_LEVEL, []), (_CPU_EXTENSIONS, []),
+    (_CPU_MESH, [])],
     ids=["import", "cpu-stitch", "cpu-ladder", "serve-import", "serve-help",
-         "cli-help", "cpu-cli", "top-level", "cpu-extensions"])
+         "cli-help", "cpu-cli", "top-level", "cpu-extensions", "cpu-mesh"])
 def test_port_runs_without_the_jax_package(script, argv):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     check = ("\nassert not [m for m in sys.modules if m == "
@@ -222,7 +250,8 @@ def test_no_port_source_imports_jax():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax)\b", re.M)
     files = _sources()
     assert len(files) >= 9
-    for module in ("core/grid.py", "ops/overlap.py", "api.py"):
+    for module in ("core/grid.py", "ops/overlap.py", "api.py",
+                   "parallel/mesh.py", "parallel/sharding.py"):
         assert os.path.join(_PORT, module) in files, module
     for path in files:
         with open(path) as f:

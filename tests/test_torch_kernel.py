@@ -480,3 +480,89 @@ def test_overlap_scorer_on_card_matches_numpy(card, shape, k):
     parts = [base[:600], base[450:1100], base[900:]]
     assert overlap.detect_trims(parts, device=True) == \
         overlap.detect_trims(parts, device=False) == [0, 150, 200]
+
+
+# ---------------------------------------------------------------- meshes
+# One card: the shards of a mesh go onto cuda:0 several times.  That checks
+# bits, launches and uploads, not multi-card speed.
+
+def _mesh_job(name):
+    """(plan, images) of the sharded card cases: an odd canvas height, a
+    resampled placement only the middle bands meet, lanczos3 downscales."""
+    shapes, kw = {
+        # canvas 61 + 4 + 26 = 91 rows (odd), one 2.5x downscale
+        "odd-h": ([(32, 61, 1), (64, 80, 6)], dict(mode="min", gap=4)),
+        # the upscaled middle image meets only the middle bands
+        "middle-bands": ([(96, 40, 1), (64, 48, 3), (96, 40, 1)],
+                         dict(mode="max", gap=200)),
+        "lanczos3": ([(900, 700, 6), (300, 200, 1), (640, 480, 3)],
+                     dict(mode="min", gap=3, filter="lanczos3")),
+    }[name]
+    plan = solve([ImageSpec(w, h, o) for w, h, o in shapes],
+                 StitchOptions(**kw))
+    rng = np.random.default_rng(sum(map(ord, name)) + 7)
+    return plan, [rng.integers(0, 256, (h, w, 3), np.uint8)
+                  for w, h, _ in shapes]
+
+
+def _pairs(plan, n):
+    """(band, resampled placement) pairs that meet: kernel #3's launches."""
+    band = -(-plan.canvas_h // n)
+    return sum(max(p.row_span[0], k * band)
+               < min(p.row_span[1], (k + 1) * band)
+               for p in plan.placements
+               if p.row_span[1] > p.row_span[0]
+               and p.col_span[1] > p.col_span[0]
+               and geometry.placement_copy_offsets(p, plan.filter) is None
+               for k in range(n))
+
+
+@pytest.mark.parametrize("name", ["odd-h", "middle-bands", "lanczos3"])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_sharded_on_repeated_card_equals_resident(card, name, n):
+    from imagestitching_tpu_torch.parallel.mesh import make_mesh
+    from imagestitching_tpu_torch.parallel.sharding import ShardedStitch
+
+    plan, imgs = _mesh_job(name)
+    if name == "odd-h":
+        assert plan.canvas_h % 2 == 1
+    ss = ShardedStitch(plan, make_mesh((1, n), devices=["cuda:0"] * n))
+    before = cuda_resize.window_launches
+    got = ss(imgs)
+    assert cuda_resize.window_launches - before == _pairs(plan, n)
+    want = cuda_resize.stitch(plan, imgs, card).cpu().numpy()
+    assert np.array_equal(got, want)
+    # one device: each source uploaded once, not once per shard
+    assert ss.h2d_bytes == sum(a.nbytes for a in imgs)
+
+
+def test_space_sharded_pipeline_on_card(card):
+    from imagestitching_tpu_torch.parallel.mesh import make_mesh
+
+    plan, imgs = _mesh_job("lanczos3")
+    cfg = RuntimeConfig(device="cuda", overlap="never",
+                        mesh=make_mesh((1, 4), devices=["cuda:0"] * 4))
+    out, m = pipeline.run(plan, imgs, cfg)
+    assert m.strategy == "space-sharded"
+    assert np.array_equal(out, cuda_resize.stitch(plan, imgs, card)
+                          .cpu().numpy())
+
+
+@pytest.mark.parametrize("jobs", [2, 4])
+def test_jobs_mesh_on_repeated_card_equals_single_card_batch(card, jobs):
+    from imagestitching_tpu_torch.parallel import batch
+    from imagestitching_tpu_torch.parallel.mesh import make_mesh
+
+    plan, _ = _job("bilinear-up")
+    rng = np.random.default_rng(5)
+    stacks = [rng.integers(0, 256, (8, p.raw_h, p.raw_w, 3), np.uint8)
+              for p in plan.placements]
+    n_res = sum(geometry.placement_copy_offsets(p, plan.filter) is None
+                for p in plan.placements)
+    single = batch.BatchedStitch(plan, 8, device="cuda")(stacks)
+    bs = batch.BatchedStitch(plan, 8, mesh=make_mesh(
+        (jobs, 1), devices=["cuda:0"] * jobs))
+    before = cuda_resize.batch_launches
+    got = bs(stacks)
+    assert cuda_resize.batch_launches - before == jobs * n_res
+    assert np.array_equal(got, single)
