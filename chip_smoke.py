@@ -12,8 +12,8 @@ temporary directory and times that body beside the current one.
 Phases, one line each; any failure exits non-zero and prints no result:
 
 1. environment: torch, CUDA, the card's name and power limit (nvidia-smi);
-2. build: the resize-and-place kernel from ``imagestitching_tpu_torch/csrc``
-   with nvcc for sm_90a;
+2. build: the kernels of ``imagestitching_tpu_torch/csrc`` with nvcc for
+   sm_90a, one nvcc per source, started together, then one link;
 3. the kernel against its plain PyTorch version on the card, bit for bit
    (bilinear up and down with fractional offsets, all 8 EXIF orientations,
    the triangle/box/lanczos3 filters, 1 and 3 channels; tiles cut by the
@@ -115,7 +115,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
 23. jobs mesh: config 5's 64 jobs on a ``(4, 1)`` jobs mesh of ``cuda:0``
     four times, 4 x 8 launches of #2, equal to the single-card batch; a
     batch of 62 refused as not divisible; ``StitchServer(use_mesh=True)``
-    over every card serving config 3 jobs equal to the plain server's.
+    over every card serving config 3 jobs equal to the plain server's;
+24. kernel #4, config 5's slot 0 from a ring of staged source bands
+    (``ops/staged_resize.py``): against its plain version bit for bit with
+    the bands as uint8 and as bf16, on slot 0 at the default grid and at
+    grids where each CTA walks 4 or all of the tiles (the ring wraps), on
+    phase 3's sources oriented on the card (one channel, odd widths whose
+    pitch is padded), and against #1 on slot 0; the profiler
+    (``imagestitching_tpu_torch.tools.profile_bf16_stage``) in this process
+    and as ``python -m`` in a subprocess, which must exit 0; CUDA-event and
+    busy times of both band dtypes on slot 0 beside the bound,
+    ``F.interpolate``, #1 and the plain version.
 
 Phases 4-15 pass ``overlap="never"``: they read the non-overlapped path,
 which 9-image jobs leave for the overlapped scheduler by default.  Each
@@ -125,10 +135,11 @@ one, phase 16 for #1 and #3 on the overlapped scheduler
 (``launches_overlapped``), phases 19, 20 and 21 for #1 on the merged
 stitch, the grid and the preview (``launches_merge``, ``launches_grid``,
 ``launches_preview``), phase 22 for #3 space-sharded
-(``launches_space_sharded``) and phase 23 for #2 on the jobs mesh
-(``launches_jobs_mesh``), each with the counts set to 0 just before.  The
-last two lines are a JSON record of the kernels and the device line
-``{"ok": true, "device": {...}}``.  Imports nothing of the JAX package.
+(``launches_space_sharded``), phase 23 for #2 on the jobs mesh
+(``launches_jobs_mesh``) and phase 24's profiler run for #4, each with the
+counts set to 0 just before.  The last two lines are a JSON record of the
+kernels and the device line ``{"ok": true, "device": {...}}``.  Imports
+nothing of the JAX package.
 Before them the card's name and power limit, as ``nvidia-smi`` gives them.
 """
 
@@ -147,6 +158,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "imagestitching_tpu_torch/csrc/resize_place.cu"
 REPLACES = "imagestitching_tpu/ops/pallas_resize.py:410"
+STAGED_SOURCE = "imagestitching_tpu_torch/csrc/resize_place_staged.cu"
+REPLACES_STAGED = "benchmarks/profile_bf16_stage.py:87"
 
 # BASELINE config 3 (BASELINE.md:35, benchmarks/run_all.py:97-103):
 # (raw width, raw height, EXIF orientation)
@@ -394,11 +407,16 @@ def _fmt(v):
     return "not measured" if v is None else f"{v:.4f}"
 
 
-def time_four(kernel, plain, parent, library, device_reps=20, **kw):
+def time_four(kernel, plain, parent, library, bound, device_reps=20, **kw):
     """Per call, by CUDA events (median of two rounds in the order plain,
     kernel, parent, library, library, parent, kernel, plain) and the
-    profiler's device busy time, of the kernel, its plain version, the
-    parent body (None: not measured) and the library call."""
+    profiler's device busy time (the profiler tool's ``busy_ms``: a trace
+    that reads below ``bound``, the kernel's bound in ms, which each of the
+    four must also meet, missed part of the work and is taken again), of
+    the kernel, its plain version, the parent body and the library call
+    (None: not measured)."""
+    from imagestitching_tpu_torch.tools.profile_bf16_stage import busy_ms
+
     fns = {"kernel": kernel, "plain": plain, "parent": parent,
            "library": library}
     order = ["plain", "kernel", "parent", "library"]
@@ -410,12 +428,7 @@ def time_four(kernel, plain, parent, library, device_reps=20, **kw):
     for name in order:
         f = fns[name]
         out[name + "_ms"] = statistics.median(ev[name]) if f else None
-        busy = None
-        for _ in range(3 if f else 0):   # the profiler now and then
-            busy = device_ms(f, reps=device_reps)[0]  # records no activity
-            if busy > 0:
-                break
-        out[name + "_busy"] = busy
+        out[name + "_busy"] = busy_ms(f, bound, device_reps) if f else None
     return out
 
 
@@ -448,8 +461,14 @@ def phase6_times(dev, smi, plan, imgs, parent):
 
         old = None if parent is None else parent_call(
             parent, "one", src, p.orientation, taps, other, r0, c0)
+        disp_w, disp_h = geometry.display_size(p.raw_w, p.raw_h,
+                                               p.orientation)
+        nbytes = footprint_bytes(*(x.cpu().numpy() for x in taps[:2]),
+                                 disp_h, *(x.cpu().numpy() for x in taps[2:]),
+                                 disp_w, 3) + (r1 - r0) * (c1 - c0) * 3
         t = time_four(kernel, plain, old, interp_call(
-            src, p.orientation, r1 - r0, c1 - c0, plan.filter))
+            src, p.orientation, r1 - r0, c1 - c0, plan.filter),
+            bound_ms(nbytes))
         kernel()
         got = canvas[r0:r1, c0:c1].clone()
         plain()
@@ -459,20 +478,16 @@ def phase6_times(dev, smi, plan, imgs, parent):
         if old is not None:
             old()
             nparent += int((other[r0:r1, c0:c1] != got).any(dim=2).sum())
-        disp_w, disp_h = geometry.display_size(p.raw_w, p.raw_h,
-                                               p.orientation)
-        nbytes = footprint_bytes(*(x.cpu().numpy() for x in taps[:2]),
-                                 disp_h, *(x.cpu().numpy() for x in taps[2:]),
-                                 disp_w, 3) + (r1 - r0) * (c1 - c0) * 3
         t["bound_ms"] = bound_ms(nbytes)
         t["bytes"] = nbytes
         parts.append(t)
         rows.append(f"#{p.index} o{p.orientation} {p.raw_w}x{p.raw_h}->"
                     f"{c1 - c0}x{r1 - r0} kernel {t['kernel_ms']:.4f} "
-                    f"({t['kernel_busy']:.4f}) parent {_fmt(t['parent_ms'])} "
+                    f"({_fmt(t['kernel_busy'])}) parent "
+                    f"{_fmt(t['parent_ms'])} "
                     f"({_fmt(t['parent_busy'])}) F.interpolate "
-                    f"{t['library_ms']:.4f} ({t['library_busy']:.4f}) plain "
-                    f"{t['plain_ms']:.4f} ({t['plain_busy']:.4f}) bound "
+                    f"{t['library_ms']:.4f} ({_fmt(t['library_busy'])}) plain "
+                    f"{t['plain_ms']:.4f} ({_fmt(t['plain_busy'])}) bound "
                     f"{t['bound_ms']:.4f} ({nbytes} bytes)")
     check(worst == 0 and ndiff == 0, f"config 3 kernel vs plain max "
           f"|diff| {worst}, {ndiff} differing pixels (must be exact)")
@@ -483,10 +498,10 @@ def phase6_times(dev, smi, plan, imgs, parent):
         f"in brackets the profiler's device busy time; bound = tap "
         f"footprint read once + region written at 3.35 TB/s) on {smi}: "
         + " | ".join(rows) + f" | total kernel {tot['kernel_ms']:.4f} "
-        f"({tot['kernel_busy']:.4f}) parent {_fmt(tot['parent_ms'])} "
+        f"({_fmt(tot['kernel_busy'])}) parent {_fmt(tot['parent_ms'])} "
         f"({_fmt(tot['parent_busy'])}) F.interpolate "
-        f"{tot['library_ms']:.4f} ({tot['library_busy']:.4f}) plain "
-        f"{tot['plain_ms']:.4f} ({tot['plain_busy']:.4f}) bound "
+        f"{tot['library_ms']:.4f} ({_fmt(tot['library_busy'])}) plain "
+        f"{tot['plain_ms']:.4f} ({_fmt(tot['plain_busy'])}) bound "
         f"{tot['bound_ms']:.4f} | kernel vs plain max |diff| {worst}, "
         f"differing px {ndiff}, unlike parent {nparent}")
     tot["worst"] = worst
@@ -687,8 +702,14 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
             parent, "batch", src, p.orientation, taps, other, r0, c0)
         library = interp_call(src, p.orientation, r1 - r0, c1 - c0,
                               plan.filter)
-        t = time_four(kernel, plain, old, library, device_reps=3, reps=5,
-                      inner=2)
+        disp_w, disp_h = geometry.display_size(p.raw_w, p.raw_h,
+                                               p.orientation)
+        nbytes = batch * (footprint_bytes(
+            *(x.cpu().numpy() for x in taps[:2]), disp_h,
+            *(x.cpu().numpy() for x in taps[2:]), disp_w, 3)
+            + (r1 - r0) * (c1 - c0) * 3)
+        t = time_four(kernel, plain, old, library, bound_ms(nbytes),
+                      device_reps=3, reps=5, inner=2)
         del library
         kernel()
         got = canvas[:, r0:r1, c0:c1].clone()
@@ -700,21 +721,15 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
             old()
             nparent += int((other[:, r0:r1, c0:c1] != got).any(dim=3).sum())
         del got, d
-        disp_w, disp_h = geometry.display_size(p.raw_w, p.raw_h,
-                                               p.orientation)
-        nbytes = batch * (footprint_bytes(
-            *(x.cpu().numpy() for x in taps[:2]), disp_h,
-            *(x.cpu().numpy() for x in taps[2:]), disp_w, 3)
-            + (r1 - r0) * (c1 - c0) * 3)
         t["bound_ms"] = bound_ms(nbytes)
         t["bytes"] = nbytes
         parts.append(t)
         rows.append(f"#{p.index} {p.raw_w}x{p.raw_h}->{c1 - c0}x{r1 - r0} "
-                    f"kernel {t['kernel_ms']:.4f} ({t['kernel_busy']:.4f}) "
+                    f"kernel {t['kernel_ms']:.4f} ({_fmt(t['kernel_busy'])}) "
                     f"parent {_fmt(t['parent_ms'])} "
                     f"({_fmt(t['parent_busy'])}) F.interpolate "
-                    f"{t['library_ms']:.4f} ({t['library_busy']:.4f}) plain "
-                    f"{t['plain_ms']:.4f} ({t['plain_busy']:.4f}) bound "
+                    f"{t['library_ms']:.4f} ({_fmt(t['library_busy'])}) plain "
+                    f"{t['plain_ms']:.4f} ({_fmt(t['plain_busy'])}) bound "
                     f"{t['bound_ms']:.4f}")
     check(worst == 0 and ndiff == 0, f"config 5 batched kernel vs plain max "
           f"|diff| {worst}, {ndiff} differing pixels (must be exact)")
@@ -724,10 +739,10 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
         f"median of 5x2 in two rounds plain kernel parent F.interpolate and "
         f"back; in brackets the profiler's device busy time) on {smi}: "
         + " | ".join(rows) + f" | total kernel {tot['kernel_ms']:.4f} "
-        f"({tot['kernel_busy']:.4f}) parent {_fmt(tot['parent_ms'])} "
+        f"({_fmt(tot['kernel_busy'])}) parent {_fmt(tot['parent_ms'])} "
         f"({_fmt(tot['parent_busy'])}) F.interpolate "
-        f"{tot['library_ms']:.4f} ({tot['library_busy']:.4f}) plain "
-        f"{tot['plain_ms']:.4f} ({tot['plain_busy']:.4f}) bound "
+        f"{tot['library_ms']:.4f} ({_fmt(tot['library_busy'])}) plain "
+        f"{tot['plain_ms']:.4f} ({_fmt(tot['plain_busy'])}) bound "
         f"{tot['bound_ms']:.4f} ({tot['bytes']} bytes) | kernel vs plain "
         f"max |diff| {worst}, differing px {ndiff}, unlike parent {nparent}")
     tot["worst"] = worst
@@ -1084,8 +1099,8 @@ def phase15_window_times(dev, smi, plan, opts, items, parent,
             for f in calls:
                 f()
 
-    t = time_four(kernel, plain, old, library, device_reps=3, reps=5,
-                  inner=1)
+    t = time_four(kernel, plain, old, library, bound_ms(nbytes),
+                  device_reps=3, reps=5, inner=1)
     # host time of a launch: 45 enqueues with the card ahead of the host
     torch.cuda.synchronize()
     host = []
@@ -1124,10 +1139,10 @@ def phase15_window_times(dev, smi, plan, opts, items, parent,
         f"events median of 5 in two rounds plain kernel parent "
         f"F.interpolate and back; in brackets the profiler's device busy "
         f"time) on {smi}: kernel {t['kernel_ms']:.4f} "
-        f"({t['kernel_busy']:.4f}) parent {_fmt(t['parent_ms'])} "
+        f"({_fmt(t['kernel_busy'])}) parent {_fmt(t['parent_ms'])} "
         f"({_fmt(t['parent_busy'])}) F.interpolate of the 5 whole "
-        f"placements {t['library_ms']:.4f} ({t['library_busy']:.4f}) plain "
-        f"{t['plain_ms']:.4f} ({t['plain_busy']:.4f}) bound "
+        f"placements {t['library_ms']:.4f} ({_fmt(t['library_busy'])}) plain "
+        f"{t['plain_ms']:.4f} ({_fmt(t['plain_busy'])}) bound "
         f"{t['bound_ms']:.4f} ({nbytes} bytes) | host time per launch "
         f"{host_us:.2f} us | max |diff| {worst}, differing px {ndiff}, "
         f"unlike parent {nparent}")
@@ -1896,10 +1911,10 @@ def phase21_preview(dev, smi, items, box_w=750):
     def plain():
         out[:] = cuda_resize.resize_place_ref(canvas, 1, *taps)
 
+    nbytes = footprint_bytes(ri0, rw, h, ci0, cw, w, c) + ph * pw * c
     t = time_four(kernel, plain, None, interp_call(canvas, 1, ph, pw,
                                                    "bilinear"),
-                  reps=10, inner=5, device_reps=10)
-    nbytes = footprint_bytes(ri0, rw, h, ci0, cw, w, c) + ph * pw * c
+                  bound_ms(nbytes), reps=10, inner=5, device_reps=10)
     t["bound_ms"] = bound_ms(nbytes)
     t["worst"] = d
     say(f"phase21 make_preview(box_w={box_w}) of the config4-EXIF canvas on "
@@ -1909,9 +1924,9 @@ def phase21_preview(dev, smi, items, box_w=750):
         f"{dh} ({host_s:.4f} s on the host), wall {wall * 1e3:.4f} ms | ms "
         f"per launch (CUDA events, median of 10x5 in two rounds; profiler "
         f"busy in brackets): kernel {t['kernel_ms']:.4f} "
-        f"({t['kernel_busy']:.4f}) F.interpolate {t['library_ms']:.4f} "
-        f"({t['library_busy']:.4f}) plain {t['plain_ms']:.4f} "
-        f"({t['plain_busy']:.4f}) bound {t['bound_ms']:.4f} ({nbytes} bytes "
+        f"({_fmt(t['kernel_busy'])}) F.interpolate {t['library_ms']:.4f} "
+        f"({_fmt(t['library_busy'])}) plain {t['plain_ms']:.4f} "
+        f"({_fmt(t['plain_busy'])}) bound {t['bound_ms']:.4f} ({nbytes} bytes "
         f"at 3.35 TB/s) | {smi}")
     return launched[0], t
 
@@ -2065,12 +2080,12 @@ def phase22_space_sharded(dev, smi, plan, opts, imgs, items, ref):
     d = int((region.int() - cuda_resize.resize_place_window_ref(
         crop, *taps, a, s_lo, valid).int()).abs().max())
     check(d == 0, f"#3 at the band window vs plain max |diff| {d}")
-    t = time_four(kernel, plain, None, interp_call(crop, 1, valid, wp.n_cols,
-                                                    plan.filter),
-                  reps=10, inner=5, device_reps=10)
     i0, w = wp.ri0[a:a + valid] - s_lo, wp.rw[a:a + valid]
     nbytes = (footprint_bytes(i0, w, wp.crop_rows, wp.ci0, wp.cw, wp.disp_w,
                               3) + valid * wp.n_cols * 3)
+    t = time_four(kernel, plain, None, interp_call(crop, 1, valid, wp.n_cols,
+                                                    plan.filter),
+                  bound_ms(nbytes), reps=10, inner=5, device_reps=10)
     t["bound_ms"] = bound_ms(nbytes)
     t["worst"] = d
     say(f"phase22 config4-EXIF space-sharded on a (1, {n}) mesh of {dev} x "
@@ -2091,9 +2106,9 @@ def phase22_space_sharded(dev, smi, plan, opts, imgs, items, ref):
     say(f"phase22 #3 at band {k}'s window of placement {p.index} (crop "
         f"{tuple(crop.shape)} -> region {valid}x{wp.n_cols}x3; ms per launch, "
         f"CUDA events median of 10x5 in two rounds; profiler busy in "
-        f"brackets): kernel {t['kernel_ms']:.4f} ({t['kernel_busy']:.4f}) "
-        f"F.interpolate {t['library_ms']:.4f} ({t['library_busy']:.4f}) "
-        f"plain {t['plain_ms']:.4f} ({t['plain_busy']:.4f}) bound "
+        f"brackets): kernel {t['kernel_ms']:.4f} ({_fmt(t['kernel_busy'])}) "
+        f"F.interpolate {t['library_ms']:.4f} ({_fmt(t['library_busy'])}) "
+        f"plain {t['plain_ms']:.4f} ({_fmt(t['plain_busy'])}) bound "
         f"{t['bound_ms']:.4f} ({nbytes} bytes at 3.35 TB/s) | max |diff| {d} "
         f"| {smi}")
     return launched[2], t
@@ -2104,9 +2119,8 @@ def phase23_jobs_mesh(dev, smi, plan, stacks, items3, opts3):
     4 x 16 jobs, one launch of #2 per resampled placement per shard, equal
     bit for bit to the single-card batch; a batch of 62 refused as not
     divisible; ``StitchServer(use_mesh=True)`` on a mesh of every card
-    serving config 3 jobs equal to the plain server's; then kernel #4's
-    slot timed on ``F.interpolate`` and #1.  Returns the launches of #2 on
-    the mesh."""
+    serving config 3 jobs equal to the plain server's.  Returns the
+    launches of #2 on the mesh."""
     import torch
     from imagestitching_tpu_torch import RuntimeConfig, StitchServer
     from imagestitching_tpu_torch.ops import cuda_resize
@@ -2155,21 +2169,6 @@ def phase23_jobs_mesh(dev, smi, plan, stacks, items3, opts3):
     check(all(np.array_equal(x, y) for x, y in zip(outs[True], outs[False])),
           "use_mesh server differs from the plain server")
 
-    # kernel #4's slot (benchmarks/profile_bf16_stage.py: config 5's slot
-    # 0, 1920x1080 into 1024x576), not ported: one F.interpolate call and
-    # #1 on it, beside the bound of the uint8 source read once and the slot
-    # written once
-    p = plan.placements[0]
-    src = src_on(stacks[0][0], dev)
-    taps = taps_on(p, plan.filter, dev)
-    n_rows, n_cols = taps[0].shape[0], taps[2].shape[0]
-    slot = torch.empty((n_rows, n_cols, 3), dtype=torch.uint8, device=dev)
-    t4 = time_four(
-        lambda: cuda_resize.resize_place(src, 1, *taps, slot, 0, 0),
-        lambda: slot.copy_(cuda_resize.resize_place_ref(src, 1, *taps)),
-        None, interp_call(src, 1, n_rows, n_cols, plan.filter),
-        reps=10, inner=5, device_reps=10)
-    t4["bound_ms"] = bound_ms(src.numel() + slot.numel())
     say(f"phase23 config5 jobs mesh ({batch} jobs on a (4, 1) mesh of {dev} "
         f"x 4; one card: bits and launches, not multi-card speed): launches "
         f"#1/#2/#3 {launched} ({n_res} resampled placements x 4 shards of "
@@ -2178,14 +2177,184 @@ def phase23_jobs_mesh(dev, smi, plan, stacks, items3, opts3):
         f"ValueError (divisible) | StitchServer(use_mesh=True): jobs axis "
         f"{unit} (every card), {len(jobs)} config 3 jobs equal to the plain "
         f"server's | {smi}")
-    say(f"phase23 kernel #4's slot ({p.raw_w}x{p.raw_h} -> {n_cols}x{n_rows}"
-        f", not ported; ms per call, CUDA events median of 10x5 in two "
-        f"rounds, profiler busy in brackets): F.interpolate "
-        f"{t4['library_ms']:.4f} ({t4['library_busy']:.4f}) #1 "
-        f"{t4['kernel_ms']:.4f} ({t4['kernel_busy']:.4f}) plain "
-        f"{t4['plain_ms']:.4f} bound {t4['bound_ms']:.6f} "
-        f"({src.numel() + slot.numel()} bytes at 3.35 TB/s) | {smi}")
     return launched[1]
+
+
+def phase24_staged(dev, smi, cases):
+    """Kernel #4, config 5's slot 0 from a ring of staged source bands,
+    against its plain version bit for bit with the bands as uint8 and as
+    bf16: on slot 0 at the default grid and at 72 and 1 CTAs (each walks 4
+    or all of the 288 tiles, so the ring wraps), on phase 3's sources
+    oriented on the card at 5 CTAs (one channel; odd widths, whose pitch is
+    padded; a placement no tile fits is refused by the schedule), and
+    against #1 on slot 0.  Then the main path: the profiler's ``run`` in
+    this process with the counts set to 0 (#4's launches), and
+    ``python -m imagestitching_tpu_torch.tools.profile_bf16_stage`` in a
+    subprocess, which must exit 0.  Last, CUDA-event and busy times on slot
+    0 of both band dtypes, each launch reading the next of enough source
+    copies to exceed the L2 cache, beside the bound, one ``F.interpolate``
+    call, #1 and the plain version.  Returns the record's numbers."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+    from imagestitching_tpu_torch.core.layout import ImageSpec, solve
+    from imagestitching_tpu_torch.ops import (cuda_resize, staged_resize,
+                                              torch_compose)
+    from imagestitching_tpu_torch.tools import profile_bf16_stage
+
+    dtypes = {"uint8": torch.uint8, "bf16": torch.bfloat16}
+    plan5, p = profile_bf16_stage.slot0()
+    rng = np.random.default_rng(24)
+    src = src_on(rng.integers(0, 256, (p.raw_h, p.raw_w, 3), np.uint8), dev)
+    taps = taps_on(p, plan5.filter, dev)
+    n_rows, n_cols = taps[0].shape[0], taps[2].shape[0]
+    sched = staged_resize.staged_schedule(taps[0], taps[2], 2, 2, p.raw_h,
+                                          p.raw_w, 3)
+    tiles = sched.grid[0] * sched.grid[1]
+
+    def versus(s, t, dt, ctas):
+        """#4 into a random canvas at (2, 1) against the plain version: max
+        |diff| and differing pixels, in the region and outside it."""
+        band = staged_resize.stage_source(s, dt)
+        nr, nc = t[0].shape[0], t[2].shape[0]
+        canvas = torch.randint(0, 256, (nr + 4, nc + 3, s.shape[2]),
+                               dtype=torch.uint8, device=dev)
+        before = canvas.clone()
+        staged_resize.resize_place_staged(band, *t, canvas, 2, 1, ctas=ctas)
+        want = staged_resize.resize_place_staged_ref(band, *t)
+        d = (canvas[2:2 + nr, 1:1 + nc].int() - want.int()).abs()
+        canvas[2:2 + nr, 1:1 + nc] = before[2:2 + nr, 1:1 + nc]
+        return (int(d.max()), int((d > 0).any(dim=2).sum())
+                + int((canvas != before).any(dim=2).sum()))
+
+    worst, ndiff, checked, refused, odd = 0, 0, 0, [], 0
+    runs = [(src, taps, 0), (src, taps, tiles // 4), (src, taps, 1)]
+    for name, shapes, opts, limits, c in cases:
+        plan = solve([ImageSpec(w, h, o) for w, h, o in shapes], opts,
+                     limits)
+        for q in resampled(plan):
+            raw = rng.integers(0, 256, (q.raw_h, q.raw_w, c), np.uint8)
+            s_ = torch_compose.orient(src_on(raw, dev),
+                                      q.orientation).contiguous()
+            t_ = taps_on(q, plan.filter, dev)
+            try:
+                staged_resize.staged_schedule(t_[0], t_[2], t_[1].shape[1],
+                                              t_[3].shape[1], *s_.shape)
+            except ValueError:
+                refused.append(f"{name}#{q.index}")
+                continue
+            odd += s_.shape[1] % 16 != 0
+            runs.append((s_, t_, 5))
+    for s_, t_, ctas in runs:
+        for dt in dtypes.values():
+            w_, n_ = versus(s_, t_, dt, ctas)
+            worst, ndiff, checked = max(worst, w_), ndiff + n_, checked + 1
+    del runs
+    check(worst == 0 and ndiff == 0, f"#4 vs plain max |diff| {worst}, "
+          f"{ndiff} differing pixels (must be exact)")
+    check(refused == ["lanczos3-k97#0"], f"#4 refused {refused}")
+    check(odd > 0, "no oriented source with an odd width")
+    one = torch.zeros((n_rows, n_cols, 3), dtype=torch.uint8, device=dev)
+    cuda_resize.resize_place(src, 1, *taps, one, 0, 0)
+    for dt in dtypes.values():
+        got = torch.zeros_like(one)
+        staged_resize.resize_place_staged(staged_resize.stage_source(src, dt),
+                                          *taps, got, 0, 0)
+        check(torch.equal(got, one), f"#4 ({dt}) differs from #1 on slot 0")
+
+    # the main path: the profiler, in this process, then as python -m
+    _zero_counts()
+    staged_resize.staged_launches = 0
+    lines = []
+    rec = profile_bf16_stage.run(reps=50, rounds=3, out=lines.append)
+    launched = (*_launch_counts(), staged_resize.staged_launches)
+    check(rec["ok"], f"profiler parity {rec['parity']}")
+    check(launched == (1, 0, 0, rec["launches"]) and launched[3] > 0,
+          f"profiler launches #1/#2/#3/#4 {launched}, its record "
+          f"{rec.get('launches')}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "imagestitching_tpu_torch.tools."
+         "profile_bf16_stage", "--reps", "10", "--rounds", "2"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    sub_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"profile_bf16_stage exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    sub = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(sub["ok"] and sub["launches"] > 0, f"profiler subprocess {sub}")
+
+    # times on slot 0: kernel #4 per band dtype beside the plain version,
+    # F.interpolate, #1 and the bound
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
+                 50 * 2 ** 20)
+    slot = torch.empty((n_rows, n_cols, 3), dtype=torch.uint8, device=dev)
+
+    def rotate(fn, items):
+        it = itertools.cycle(items)
+        return lambda: fn(next(it))
+
+    def staged(band):
+        staged_resize.resize_place_staged(band, *taps, slot, 0, 0,
+                                          schedule=sched)
+
+    t = {}
+    for key, dt in dtypes.items():
+        n = l2 // (src.numel() * (2 if key == "bf16" else 1)) + 1
+        bands = [staged_resize.stage_source(src, dt) for _ in range(n)]
+        nbytes = staged_resize.moved_bytes(src.shape, n_rows, n_cols, dt)
+        library = None
+        if key == "uint8":
+            xs = [src.permute(2, 0, 1)[None].float().contiguous()
+                  for _ in range(3)]
+            library = rotate(lambda x: F.interpolate(
+                x, size=(n_rows, n_cols), mode="bilinear",
+                align_corners=False), xs)
+        t[key] = time_four(
+            rotate(staged, bands),
+            lambda b=bands[0]: slot.copy_(
+                staged_resize.resize_place_staged_ref(b, *taps)),
+            None, library, bound_ms(nbytes), reps=10, inner=5,
+            device_reps=10)
+        t[key].update(bound_ms=bound_ms(nbytes), bytes=nbytes, copies=n)
+        del bands, library
+    raws = [src.clone() for _ in range(t["uint8"]["copies"])]
+    t1 = time_four(rotate(lambda s_: cuda_resize.resize_place(
+        s_, 1, *taps, slot, 0, 0), raws), None, None, None,
+        t["uint8"]["bound_ms"], reps=10, inner=5, device_reps=10)
+    del raws
+    u8, bf = t["uint8"], t["bf16"]
+    t["uint8"]["worst"] = worst
+    say(f"phase24 #4 vs plain (exact), uint8 and bf16 bands: {checked} "
+        f"launches (slot 0 at {sched.grid} = {tiles} tiles on the default "
+        f"grid, {tiles // 4} and 1 CTAs; phase 3's sources oriented on the "
+        f"card at 5 CTAs, {odd} of odd width) max |diff| {worst}, differing "
+        f"px {ndiff}; refused by the schedule: {', '.join(refused)} | slot 0 "
+        f"equal to #1 in both dtypes")
+    say(f"phase24 main path: profile_bf16_stage.run in this process, "
+        f"launches #1/#2/#3/#4 {launched} | " + " | ".join(lines))
+    say(f"phase24 python -m imagestitching_tpu_torch.tools.profile_bf16_stage"
+        f" --reps 10 --rounds 2: exit 0 in {sub_s:.1f} s (a fresh process: "
+        f"torch's import and the card's context included), parity "
+        f"{sub['parity']}, launches {sub['launches']}, ms/slot (busy in "
+        f"brackets) uint8 {sub['times']['uint8 bands']['ms']:.4f} "
+        f"({_fmt(sub['times']['uint8 bands']['busy_ms'])}) bf16 "
+        f"{sub['times']['bf16 bands']['ms']:.4f} "
+        f"({_fmt(sub['times']['bf16 bands']['busy_ms'])}), speedup "
+        f"{sub['speedup']:.2f}x")
+    say(f"phase24 slot 0 ({p.raw_w}x{p.raw_h} -> {n_cols}x{n_rows}; ms per "
+        f"call, CUDA events median of 10x5 in two rounds, profiler busy in "
+        f"brackets; each launch on the next of {u8['copies']} uint8 / "
+        f"{bf['copies']} bf16 source copies, beyond the {l2} bytes of L2): "
+        f"#4 uint8 {u8['kernel_ms']:.4f} ({_fmt(u8['kernel_busy'])}) bf16 "
+        f"{bf['kernel_ms']:.4f} ({_fmt(bf['kernel_busy'])}) | #1 "
+        f"{t1['kernel_ms']:.4f} ({_fmt(t1['kernel_busy'])}) | F.interpolate "
+        f"{u8['library_ms']:.4f} ({_fmt(u8['library_busy'])}) | plain uint8 "
+        f"{u8['plain_ms']:.4f} bf16 {bf['plain_ms']:.4f} | bound uint8 "
+        f"{u8['bound_ms']:.6f} ({u8['bytes']} bytes) bf16 "
+        f"{bf['bound_ms']:.6f} ({bf['bytes']} bytes) at 3.35 TB/s | {smi}")
+    return {"launches": launched[3], "t": t, "kernel1": t1,
+            "profiler": rec}
 
 
 def main() -> None:
@@ -2231,7 +2400,8 @@ def main() -> None:
           "checkout")
     regs = " ".join(ln.split(": ", 1)[-1] for ln in info.log.splitlines()
                     if "registers" in ln or "spill" in ln)
-    say(f"phase2 build: {' '.join(info.command)} | seconds "
+    say(f"phase2 build: {' && '.join(' '.join(c) for c in info.compiles)} "
+        f"(together), then {' '.join(info.command)} | seconds "
         f"{info.seconds:.3f} cached {info.cached} | ptxas: {regs or 'n/a'} "
         f"| budget_from_device: {budget_from_device().hbm_bytes} bytes")
     parent = None
@@ -2466,6 +2636,10 @@ def main() -> None:
                                            opts3)
     del stacks5
     marks.append(("23", time.perf_counter()))
+
+    # ---- phase 24: kernel #4 and its profiler
+    r24 = phase24_staged(dev, smi, cases)
+    marks.append(("24", time.perf_counter()))
     say("seconds by phase (host clock): " + " ".join(
         f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in
         enumerate(marks[1:])) + f" | total {marks[-1][1] - marks[0][1]:.1f}")
@@ -2473,8 +2647,9 @@ def main() -> None:
     def r(v):
         return None if v is None else round(v, 6)
 
-    def entry(name, replaces, launches, worst, t, **by_path):
-        return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+    def entry(name, replaces, launches, worst, t, source=KERNEL_SOURCE,
+              **by_path):
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": worst, "ms": r(t["kernel_ms"]),
                 "plain_ms": r(t["plain_ms"]), "bound_ms": r(t["bound_ms"]),
@@ -2491,7 +2666,9 @@ def main() -> None:
     # preview of phase 21; "preview": #1's yardsticks at phase 21's launch;
     # "launches_jobs_mesh": #2 on phase 23's jobs mesh;
     # "launches_space_sharded": #3 on phase 22's space-sharded job, and
-    # "space_sharded" its yardsticks at one band window
+    # "space_sharded" its yardsticks at one band window; #4: "launches" on
+    # phase 24's profiler run, its yardsticks with uint8 bands, "bf16"
+    # with bf16 bands, "kernel1" #1 on the same slot
     record = {"kernels": [
         entry("resize_place", REPLACES, launches_main,
               max(worst_all, t6["worst"], t21["worst"]), t6,
@@ -2513,7 +2690,17 @@ def main() -> None:
                              "busy_ms": r(t22["kernel_busy"]),
                              "plain_ms": r(t22["plain_ms"]),
                              "library_ms": r(t22["library_ms"]),
-                             "bound_ms": r(t22["bound_ms"])})]}
+                             "bound_ms": r(t22["bound_ms"])}),
+        entry("resize_place_staged", REPLACES_STAGED, r24["launches"],
+              r24["t"]["uint8"]["worst"], r24["t"]["uint8"],
+              source=STAGED_SOURCE,
+              bf16={"ms": r(r24["t"]["bf16"]["kernel_ms"]),
+                    "busy_ms": r(r24["t"]["bf16"]["kernel_busy"]),
+                    "plain_ms": r(r24["t"]["bf16"]["plain_ms"]),
+                    "bound_ms": r(r24["t"]["bf16"]["bound_ms"])},
+              kernel1={"ms": r(r24["kernel1"]["kernel_ms"]),
+                       "busy_ms": r(r24["kernel1"]["kernel_busy"])},
+              profiler_speedup=r(r24["profiler"]["speedup"]))]}
     say(json.dumps(record))
     say(f"gpu: {smi}")
     say(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``) at first use.
 
 The twin of ``pallas_resize._build_call_static`` (single-job, batched and
-windowed): where the JAX package lowers a ``pl.pallas_call`` through Mosaic,
-the port compiles its CUDA C++ sources with ``nvcc`` into a shared library
-with a plain C interface and
-loads it with ``ctypes``.  No PyTorch headers are compiled, so a build takes
+windowed) and of the staged-band microbenchmark's ``build``: where the JAX
+package lowers a ``pl.pallas_call`` through Mosaic, the port compiles its
+CUDA C++ sources with ``nvcc``, one process per source, all started
+together, and links them into one shared library with a plain C interface,
+loaded with ``ctypes``.  No PyTorch headers are compiled, so a build takes
 seconds.  The library lands in ``imagestitching_tpu_torch/_build/`` under a
 name keyed on a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.
@@ -40,7 +41,8 @@ class BuildInfo:
     """What one build (or cache hit) did."""
 
     path: Path
-    command: List[str]
+    command: List[str]              # the link
+    compiles: List[List[str]]       # one nvcc per source, run together
     seconds: float
     cached: bool
     log: str          # nvcc's stderr (ptxas register and spill report)
@@ -78,28 +80,55 @@ def _digest(srcs: List[Path]) -> str:
 
 
 def build() -> BuildInfo:
-    """Compile ``csrc/*.cu`` into one shared library, unless a library with
+    """Compile each of ``csrc/*.cu`` into an object, every ``nvcc`` started
+    at once, and link them into one shared library, unless a library with
     the same source hash is already built."""
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    out = BUILD_DIR / f"libisx_kernels_{_digest(srcs)}.so"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(out), *map(str, srcs)]
-    if out.exists():
-        return BuildInfo(out, cmd, 0.0, True, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    digest = _digest(srcs)
+    out = BUILD_DIR / f"libisx_kernels_{digest}.so"
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd[cmd.index("-o") + 1] = str(tmp)
+    objs = [BUILD_DIR / f"{s.stem}_{digest}.{os.getpid()}.o" for s in srcs]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    compiles = [[nvcc(), *flags, "-c", "-o", str(o), str(s)]
+                for o, s in zip(objs, srcs)]
+    link = [nvcc(), *NVCC_FLAGS, "-o", str(out), *map(str, objs)]
+    if out.exists():
+        return BuildInfo(out, link, compiles, 0.0, True, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in compiles]
+        logs, failed = [], []
+        for cmd, proc in zip(compiles, procs):
+            try:
+                _, err = proc.communicate(timeout=900)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        link[link.index("-o") + 1] = str(tmp)
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)      # atomic: a concurrent loader never sees half
-    cmd[cmd.index("-o") + 1] = str(out)
-    return BuildInfo(out, cmd, seconds, False, proc.stderr)
+        for o in objs:
+            o.unlink(missing_ok=True)
+    link[link.index("-o") + 1] = str(out)
+    return BuildInfo(out, link, compiles, time.perf_counter() - t0, False,
+                     "".join(logs))
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -127,6 +156,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i64,                              # region, region rows
         p]                                   # stream
     lib.resize_place_window_launch.restype = i32
+    lib.resize_place_staged_launch.argtypes = [
+        p, i32, i64, i64, i64, i32,          # src, elt bytes, pitch, H, W, C
+        p, p, i32, i32,                      # ri0, rw, n_rows, k_rows
+        p, p, i32, i32,                      # ci0, cw, n_cols, k_cols
+        p, p, i32, i32,                      # row/col band starts, band h, w
+        i32, i32,                            # tile rows, cols
+        p, i64, i64, i64, i64,               # canvas, H, W, r0, c0
+        i32, p]                              # ctas, stream
+    lib.resize_place_staged_launch.restype = i32
     lib.resize_place_error_string.argtypes = [i32]
     lib.resize_place_error_string.restype = ctypes.c_char_p
 

@@ -5,7 +5,8 @@ The test process itself has JAX loaded (tests/conftest.py imports it), so
 the import checks run in fresh subprocesses: once as they are, and once
 more with a ``sys.meta_path`` finder that makes ``imagestitching_tpu``
 unimportable, so the port's entry points (the CPU stitch, the ladder, the
-server, ``serve.http --help``, the CLI's ``--help``, a CPU CLI job, the
+server, ``serve.http --help``, the CLI's ``--help``, the staged-band
+profiler's ``--help``, a CPU CLI job, the
 top-level names, the extensions: grid, merge and preview, and the mesh
 paths: a space-sharded job and a batch over a jobs mesh of ``cpu``
 devices) are shown to run on its own copies of the host layers.  An AST walk over every module
@@ -217,17 +218,25 @@ import runpy
 runpy.run_module("imagestitching_tpu_torch.cli", run_name="__main__")
 """
 
+_PROFILER_HELP = """
+import runpy
+runpy.run_module("imagestitching_tpu_torch.tools.profile_bf16_stage",
+                 run_name="__main__")
+"""
+
 # what ``--help`` of each module must print
-_HELP_NEEDLE = {_SERVE_HELP: "--max-batch", _CLI_HELP: "--device"}
+_HELP_NEEDLE = {_SERVE_HELP: "--max-batch", _CLI_HELP: "--device",
+                _PROFILER_HELP: "--reps"}
 
 
 @pytest.mark.parametrize("script,argv", [
     (_IMPORT_ONLY, []), (_CPU_STITCH, []), (_CPU_LADDER, []),
     (_SERVE_IMPORT, []), (_SERVE_HELP, ["--help"]), (_CLI_HELP, ["--help"]),
     (_CPU_CLI, []), (_TOP_LEVEL, []), (_CPU_EXTENSIONS, []),
-    (_CPU_MESH, [])],
+    (_CPU_MESH, []), (_PROFILER_HELP, ["--help"])],
     ids=["import", "cpu-stitch", "cpu-ladder", "serve-import", "serve-help",
-         "cli-help", "cpu-cli", "top-level", "cpu-extensions", "cpu-mesh"])
+         "cli-help", "cpu-cli", "top-level", "cpu-extensions", "cpu-mesh",
+         "profiler-help"])
 def test_port_runs_without_the_jax_package(script, argv):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     check = ("\nassert not [m for m in sys.modules if m == "
@@ -251,7 +260,8 @@ def test_no_port_source_imports_jax():
     files = _sources()
     assert len(files) >= 9
     for module in ("core/grid.py", "ops/overlap.py", "api.py",
-                   "parallel/mesh.py", "parallel/sharding.py"):
+                   "parallel/mesh.py", "parallel/sharding.py",
+                   "ops/staged_resize.py", "tools/profile_bf16_stage.py"):
         assert os.path.join(_PORT, module) in files, module
     for path in files:
         with open(path) as f:
@@ -287,6 +297,10 @@ def test_kernel_source_is_in_the_package():
     assert 'extern "C"' in src and "int resize_place_launch(" in src
     assert "int resize_place_batch_launch(" in src
     assert "int resize_place_window_launch(" in src
+    with open(os.path.join(_PORT, "csrc", "resize_place_staged.cu")) as f:
+        src = f.read()
+    assert 'extern "C"' in src and "int resize_place_staged_launch(" in src
+    assert "cp.async.cg.shared.global" in src
 
 
 def test_cli_module_runs_with_help():

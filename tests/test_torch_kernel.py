@@ -1,5 +1,6 @@
-"""The CUDA resize-and-place kernels (single-job, batched and windowed)
-against their plain PyTorch version, on the card.  The kernels have no CPU mode, so every
+"""The CUDA resize-and-place kernels (single-job, batched, windowed, and
+#4 from a ring of staged source bands) against their plain PyTorch version,
+on the card.  The kernels have no CPU mode, so every
 test here is marked ``cuda`` and skips on a host without a card.  Run them on a CUDA host with
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernel.py -q
@@ -12,7 +13,12 @@ differs somewhere.  The batched kernel is the same body over ``blockIdx.z``,
 so it also equals B single launches bit for bit.  The windowed kernel is
 the same body on a source row window, so its chunks put together equal the
 single-job kernel's region bit for bit, and a banded job equals the resident
-one.  Whole jobs are held to the float64 oracle within 1 step.
+one.  Whole jobs are held to the float64 oracle within 1 step.  Kernel #4
+computes from bands of an oriented source staged in a ring of three, held
+as uint8 or bf16: both equal its plain version at the default grid, at
+grids where each CTA walks 4 or all of the tiles (the ring wraps), with one
+channel and with an odd width's padded pitch, and equal #1 on config 5's
+slot 0.
 
 The cases reach what the tiled body does differently: tiles cut by the
 region's edge at odd canvas columns, a 12x bilinear downscale of a
@@ -29,9 +35,11 @@ from imagestitching_tpu_torch import MemoryBudget, RuntimeConfig, StitchServer
 from imagestitching_tpu_torch.config import CanvasLimits, StitchOptions
 from imagestitching_tpu_torch.core import geometry, oracle
 from imagestitching_tpu_torch.core.layout import ImageSpec, solve
-from imagestitching_tpu_torch.ops import _build, cuda_resize, torch_compose
+from imagestitching_tpu_torch.ops import _build, cuda_resize, \
+    staged_resize, torch_compose
 from imagestitching_tpu_torch.ops.window import WindowPlan
 from imagestitching_tpu_torch.runtime import pipeline, tiler
+from imagestitching_tpu_torch.tools import profile_bf16_stage
 
 pytestmark = pytest.mark.cuda
 
@@ -566,3 +574,112 @@ def test_jobs_mesh_on_repeated_card_equals_single_card_batch(card, jobs):
     got = bs(stacks)
     assert cuda_resize.batch_launches - before == jobs * n_res
     assert np.array_equal(got, single)
+
+
+# ---------------------------------------------------------------------------
+# Kernel #4: a placement from a ring of staged source bands
+# (ops/staged_resize.py), in both band dtypes, tolerance 0
+# ---------------------------------------------------------------------------
+
+_DTYPES = [torch.uint8, torch.bfloat16]
+
+
+def _slot0(dev):
+    """Config 5's slot 0 (1920x1080 -> 1024x576): oriented source and taps."""
+    plan, p = profile_bf16_stage.slot0()
+    raw = np.random.default_rng(5).integers(0, 256, (p.raw_h, p.raw_w, 3),
+                                            np.uint8)
+    return torch.from_numpy(raw).to(dev), _taps(p, plan.filter, dev)
+
+
+def _staged_vs_plain(src, taps, dtype, r0=0, c0=0, **kw):
+    """Kernel #4 into a random canvas at (r0, c0): max |diff| against the
+    plain version there, and whether anything outside the region moved."""
+    band = staged_resize.stage_source(src, dtype)
+    n_rows, n_cols = len(taps[0]), len(taps[2])
+    c = src.shape[2]
+    gen = torch.Generator(device=src.device).manual_seed(n_rows + n_cols)
+    canvas = torch.randint(0, 256, (r0 + n_rows + 3, c0 + n_cols + 5, c),
+                           generator=gen, device=src.device,
+                           dtype=torch.uint8)
+    before = canvas.clone()
+    launches = staged_resize.staged_launches
+    staged_resize.resize_place_staged(band, *taps, canvas, r0, c0, **kw)
+    torch.cuda.synchronize()
+    assert staged_resize.staged_launches == launches + 1
+    want = staged_resize.resize_place_staged_ref(band, *taps)
+    d = int((canvas[r0:r0 + n_rows, c0:c0 + n_cols].int()
+             - want.int()).abs().max())
+    canvas[r0:r0 + n_rows, c0:c0 + n_cols] = before[r0:r0 + n_rows,
+                                                    c0:c0 + n_cols]
+    return d, bool(torch.equal(canvas, before)), want
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=["uint8", "bf16"])
+@pytest.mark.parametrize("ctas", [0, 72, 1], ids=["default", "ring-4",
+                                                  "one-cta"])
+def test_staged_kernel_equals_plain_on_slot0(card, dtype, ctas):
+    """Slot 0 at the default grid (min(tiles, 2 x SMs)), at 72 CTAs (each
+    walks 4 of the 288 tiles, so the ring of 3 wraps) and at 1 CTA."""
+    src, taps = _slot0(card)
+    d, outside, _ = _staged_vs_plain(src, taps, dtype, 7, 3, ctas=ctas)
+    assert d == 0 and outside
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=["uint8", "bf16"])
+def test_staged_kernel_equals_kernel1_on_slot0(card, dtype):
+    src, taps = _slot0(card)
+    band = staged_resize.stage_source(src, dtype)
+    got = torch.zeros((576, 1024, 3), dtype=torch.uint8, device=card)
+    staged_resize.resize_place_staged(band, *taps, got, 0, 0)
+    one = torch.zeros_like(got)
+    cuda_resize.resize_place(src, 1, *taps, one, 0, 0)
+    assert torch.equal(got, one)
+
+
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_staged_kernel_equals_plain_on_oriented_sources(card, name):
+    """The phase-3 cases, each resampled placement's source oriented on the
+    card first; both band dtypes.  A placement whose three bf16 bands fit
+    no tile (lanczos3 at 16x, K = 97) is refused by the schedule."""
+    plan, imgs = _job(name)
+    checked = refused = 0
+    for raw, p in zip(imgs, plan.placements):
+        if geometry.placement_copy_offsets(p, plan.filter) is not None:
+            continue
+        src, taps = _operands(raw, p, plan.filter, card)
+        src = torch_compose.orient(src, p.orientation).contiguous()
+        try:
+            staged_resize.staged_schedule(taps[0], taps[2], taps[1].shape[1],
+                                          taps[3].shape[1], *src.shape)
+        except ValueError as e:
+            assert "shared memory" in str(e) and taps[1].shape[1] > 64
+            refused += 1
+            continue
+        for dtype in _DTYPES:
+            d, outside, want = _staged_vs_plain(src, taps, dtype, 2, 1,
+                                                ctas=5)
+            assert d == 0 and outside, f"{name} #{p.index} {dtype}: {d}"
+            assert torch.equal(want, cuda_resize.resize_place_ref(
+                src, 1, *taps))
+        checked += 1
+    assert checked or name == "lanczos3-k97", name
+    assert refused == 0 or name == "lanczos3-k97", name
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=["uint8", "bf16"])
+@pytest.mark.parametrize("shape,c", [((563, 1001), 3), ((217, 333), 1)],
+                         ids=["odd-rgb", "odd-gray"])
+def test_staged_kernel_pads_an_odd_pitch(card, dtype, shape, c):
+    """Odd widths: the band source's rows are padded to 16 pixels, so a band
+    may read past the last real pixel into the pad, never past the row."""
+    h, w = shape
+    plan = solve([ImageSpec(w, h), ImageSpec(w + 200, h + 100)],
+                 StitchOptions(mode="max", gap=2.5, supersample=False))
+    p = plan.placements[0]
+    raw = np.random.default_rng(w).integers(0, 256, (h, w, c), np.uint8)
+    src = torch.from_numpy(raw).to(card)
+    assert staged_resize.stage_source(src, dtype).stride(0) % (16 * c) == 0
+    d, outside, _ = _staged_vs_plain(src, _taps(p, plan.filter, card), dtype,
+                                     ctas=3)
+    assert d == 0 and outside

@@ -243,7 +243,8 @@ def test_window_wrapper_rejects_what_the_kernel_does_not_take(bad):
 def test_kernel_build_flags_and_missing_nvcc(monkeypatch):
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
-    assert [s.name for s in _build.sources()] == ["resize_place.cu"]
+    assert [s.name for s in _build.sources()] == ["resize_place.cu",
+                                                  "resize_place_staged.cu"]
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setenv("PATH", "/nonexistent")
     monkeypatch.setattr(_build.os, "access", lambda *a: False)
