@@ -7,7 +7,9 @@ Run from the root of a checkout, with no arguments:
 
 ``--parent-source PATH`` also builds a previous kernel source (for example
 ``git show HEAD~1:imagestitching_tpu_torch/csrc/resize_place.cu``) into a
-temporary directory and times that body beside the current one.
+temporary directory and times that body beside the current one;
+``--parent-staged-source PATH`` does the same for a previous
+``csrc/resize_place_staged.cu`` (kernel #4's first version) in phase 24.
 
 Phases, one line each; any failure exits non-zero and prints no result:
 
@@ -118,14 +120,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
     over every card serving config 3 jobs equal to the plain server's;
 24. kernel #4, config 5's slot 0 from a ring of staged source bands
     (``ops/staged_resize.py``): against its plain version bit for bit with
-    the bands as uint8 and as bf16, on slot 0 at the default grid and at
-    grids where each CTA walks 4 or all of the tiles (the ring wraps), on
-    phase 3's sources oriented on the card (one channel, odd widths whose
-    pitch is padded), and against #1 on slot 0; the profiler
-    (``imagestitching_tpu_torch.tools.profile_bf16_stage``) in this process
-    and as ``python -m`` in a subprocess, which must exit 0; CUDA-event and
-    busy times of both band dtypes on slot 0 beside the bound,
-    ``F.interpolate``, #1 and the plain version.
+    the bands as uint8 and as bf16, on slot 0 at the default grid (as many
+    CTAs as the SMs hold), at one CTA an SM and at 72, 5 and 1 CTAs (the
+    ring wraps), on phase 3's sources oriented on the card (one channel,
+    odd widths whose pitch is padded), and against #1 on slot 0; the
+    profiler (``imagestitching_tpu_torch.tools.profile_bf16_stage``) in
+    this process and as ``python -m`` in a subprocess, which must exit 0;
+    CUDA-event and busy times of both band dtypes' prepared calls on slot 0
+    beside the bound, ``F.interpolate``, #1, the plain version, the
+    previous body (``--parent-staged-source``) and the prepared call at one
+    CTA an SM, and the host microseconds a launch takes (prepared,
+    one-shot, previous).
 
 Phases 4-15 pass ``overlap="never"``: they read the non-overlapped path,
 which 9-image jobs leave for the overlapped scheduler by default.  Each
@@ -361,6 +366,66 @@ def parent_call(lib, entry, src, orientation, taps, canvas, r0=0, c0=0):
                 ptr(canvas.data_ptr()), canvas.shape[0], canvas.shape[1],
                 r0, c0, stream)
         check(err == 0, f"parent {entry} launch: error {err}")
+    return call
+
+
+def load_parent_staged(source):
+    """A previous ``csrc/resize_place_staged.cu`` (the first version of
+    kernel #4, whose one C entry takes every argument at each launch),
+    built with the port's nvcc flags into a temporary directory, with its
+    entry bound to that signature."""
+    import ctypes
+    from imagestitching_tpu_torch.ops import _build
+
+    out = os.path.join(tempfile.mkdtemp(prefix="parent_staged_"),
+                       "libparent_staged.so")
+    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", out, source]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"parent staged build: {proc.stderr[-2000:]}")
+    lib = ctypes.CDLL(out)
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.resize_place_staged_launch.argtypes = [
+        p, i32, i64, i64, i64, i32, p, p, i32, i32, p, p, i32, i32, p, p,
+        i32, i32, i32, i32, p, i64, i64, i64, i64, i32, p]
+    lib.resize_place_staged_launch.restype = i32
+    return lib
+
+
+def parent_staged_call(lib, taps, m_h, m_w, canvas):
+    """A call of the previous kernel #4 as its one-shot wrapper made it, on
+    its own schedule (32x64 tiles, columns aligned to 16 pixels), with all
+    of that wrapper's host work at every call: the checks, the schedule's
+    shapes, the current device and stream, 27 arguments."""
+    import ctypes
+
+    import torch
+    from imagestitching_tpu_torch.ops import staged_resize
+
+    ri0, rw, ci0, cw = taps
+    n_rows, n_cols = ri0.shape[0], ci0.shape[0]
+    b = staged_resize.band_schedule(ri0.cpu().numpy(), ci0.cpu().numpy(), 2,
+                                    2, m_h, m_w, 32, 64, 16)
+    rs, cs = (torch.from_numpy(x).to(ri0.device)
+              for x in (b.row_starts, b.col_starts))
+    shapes = (m_h, m_w, n_rows, n_cols, 2, 2)
+    ptr = ctypes.c_void_p
+
+    def call(band):
+        staged_resize._check(band, *taps, canvas, 0, 0)
+        check((band.shape[0], band.shape[1], n_rows, n_cols, rw.shape[1],
+               cw.shape[1]) == shapes and rs.device == band.device,
+              "parent staged schedule")
+        elt = 2 if band.dtype == torch.bfloat16 else 1
+        check(torch.cuda.current_device() == band.device.index,
+              "parent staged device")
+        err = lib.resize_place_staged_launch(
+            ptr(band.data_ptr()), elt, band.stride(0) * elt, m_h, m_w, 3,
+            ptr(ri0.data_ptr()), ptr(rw.data_ptr()), n_rows, 2,
+            ptr(ci0.data_ptr()), ptr(cw.data_ptr()), n_cols, 2,
+            ptr(rs.data_ptr()), ptr(cs.data_ptr()), b.band_h, b.band_w, 32,
+            64, ptr(canvas.data_ptr()), canvas.shape[0], canvas.shape[1], 0,
+            0, 0, ptr(torch.cuda.current_stream().cuda_stream))
+        check(err == 0, f"parent staged launch: error {err}")
     return call
 
 
@@ -2180,20 +2245,27 @@ def phase23_jobs_mesh(dev, smi, plan, stacks, items3, opts3):
     return launched[1]
 
 
-def phase24_staged(dev, smi, cases):
+def phase24_staged(dev, smi, cases, parent=None):
     """Kernel #4, config 5's slot 0 from a ring of staged source bands,
     against its plain version bit for bit with the bands as uint8 and as
-    bf16: on slot 0 at the default grid and at 72 and 1 CTAs (each walks 4
-    or all of the 288 tiles, so the ring wraps), on phase 3's sources
-    oriented on the card at 5 CTAs (one channel; odd widths, whose pitch is
-    padded; a placement no tile fits is refused by the schedule), and
-    against #1 on slot 0.  Then the main path: the profiler's ``run`` in
-    this process with the counts set to 0 (#4's launches), and
-    ``python -m imagestitching_tpu_torch.tools.profile_bf16_stage`` in a
-    subprocess, which must exit 0.  Last, CUDA-event and busy times on slot
-    0 of both band dtypes, each launch reading the next of enough source
-    copies to exceed the L2 cache, beside the bound, one ``F.interpolate``
-    call, #1 and the plain version.  Returns the record's numbers."""
+    bf16: on slot 0 at the default grid, at one CTA an SM and at 72, 5 and
+    1 CTAs (each walks 4 or 5, 8, about 115 or all of the 576 tiles, so the
+    ring wraps), on
+    phase 3's sources oriented on the card at 5 CTAs (one channel; odd
+    widths, whose pitch is padded; a placement no tile fits is refused by
+    the schedule), and against #1 on slot 0.  Then the main path: the
+    profiler's ``run`` in this process with the counts set to 0 (#4's
+    launches), and ``python -m imagestitching_tpu_torch.tools.
+    profile_bf16_stage`` in a subprocess, which must exit 0.  Last, CUDA-
+    event and busy times on slot 0 of both band dtypes' prepared calls,
+    each launch reading the next of enough source copies to exceed the L2
+    cache, beside the bound, one ``F.interpolate`` call, #1, the plain
+    version and (``parent``, the library of a previous
+    ``resize_place_staged.cu``) the previous body, checked equal, and of the
+    prepared call at one CTA an SM; and the
+    host microseconds a launch takes: the prepared call, the one-shot
+    wrapper and the previous body's one-shot call.  Returns the record's
+    numbers."""
     import itertools
 
     import torch
@@ -2229,7 +2301,8 @@ def phase24_staged(dev, smi, cases):
                 + int((canvas != before).any(dim=2).sum()))
 
     worst, ndiff, checked, refused, odd = 0, 0, 0, [], 0
-    runs = [(src, taps, 0), (src, taps, tiles // 4), (src, taps, 1)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    runs = [(src, taps, ctas) for ctas in (0, sms, 72, 5, 1)]
     for name, shapes, opts, limits, c in cases:
         plan = solve([ImageSpec(w, h, o) for w, h, o in shapes], opts,
                      limits)
@@ -2284,25 +2357,30 @@ def phase24_staged(dev, smi, cases):
     sub = json.loads(proc.stdout.strip().splitlines()[-1])
     check(sub["ok"] and sub["launches"] > 0, f"profiler subprocess {sub}")
 
-    # times on slot 0: kernel #4 per band dtype beside the plain version,
-    # F.interpolate, #1 and the bound
+    # times on slot 0: kernel #4's prepared call per band dtype beside the
+    # plain version, F.interpolate, #1, the previous body and the bound
     l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
                  50 * 2 ** 20)
     slot = torch.empty((n_rows, n_cols, 3), dtype=torch.uint8, device=dev)
+    other = torch.empty_like(slot)
 
     def rotate(fn, items):
         it = itertools.cycle(items)
         return lambda: fn(next(it))
 
-    def staged(band):
-        staged_resize.resize_place_staged(band, *taps, slot, 0, 0,
-                                          schedule=sched)
-
-    t = {}
+    old = None if parent is None else parent_staged_call(
+        parent, taps, p.raw_h, p.raw_w, other)
+    t, nparent = {}, 0
     for key, dt in dtypes.items():
         n = l2 // (src.numel() * (2 if key == "bf16" else 1)) + 1
         bands = [staged_resize.stage_source(src, dt) for _ in range(n)]
         nbytes = staged_resize.moved_bytes(src.shape, n_rows, n_cols, dt)
+        launch = staged_resize.StagedLaunch(bands[0], *taps, slot, 0, 0,
+                                            schedule=sched)
+        if old is not None:
+            launch(bands[0])
+            old(bands[0])
+            nparent += int((slot != other).any(dim=2).sum())
         library = None
         if key == "uint8":
             xs = [src.permute(2, 0, 1)[None].float().contiguous()
@@ -2311,13 +2389,34 @@ def phase24_staged(dev, smi, cases):
                 x, size=(n_rows, n_cols), mode="bilinear",
                 align_corners=False), xs)
         t[key] = time_four(
-            rotate(staged, bands),
+            rotate(launch, bands),
             lambda b=bands[0]: slot.copy_(
                 staged_resize.resize_place_staged_ref(b, *taps)),
-            None, library, bound_ms(nbytes), reps=10, inner=5,
-            device_reps=10)
-        t[key].update(bound_ms=bound_ms(nbytes), bytes=nbytes, copies=n)
-        del bands, library
+            None if old is None else rotate(old, bands), library,
+            bound_ms(nbytes), reps=10, inner=5, device_reps=10)
+        hosts = {"host_us": rotate(launch, bands),
+                 "oneshot_host_us": rotate(
+                     lambda b: staged_resize.resize_place_staged(
+                         b, *taps, slot, 0, 0, schedule=sched), bands),
+                 "parent_host_us": None if old is None else rotate(old,
+                                                                   bands)}
+        t[key].update({k: None if f is None else
+                       profile_bf16_stage.host_us(f, 200)
+                       for k, f in hosts.items()})
+        # the grid the tile picker does not plan for: one CTA an SM, each
+        # walking 4 or 5 tiles, so that the ring overlaps
+        walk = staged_resize.StagedLaunch(bands[0], *taps, slot, 0, 0,
+                                          schedule=sched, ctas=sms)
+        one_an_sm = time_four(rotate(walk, bands), None, None, None,
+                              bound_ms(nbytes), reps=10, inner=5,
+                              device_reps=10)
+        t[key].update(one_an_sm_ms=one_an_sm["kernel_ms"],
+                      one_an_sm_busy=one_an_sm["kernel_busy"])
+        t[key].update(bound_ms=bound_ms(nbytes), bytes=nbytes, copies=n,
+                      ctas=launch.args.grid,
+                      smem_bytes=launch.args.smem_bytes)
+        del bands, library, launch, walk
+    check(nparent == 0, f"#4: {nparent} pixels unlike the previous body")
     raws = [src.clone() for _ in range(t["uint8"]["copies"])]
     t1 = time_four(rotate(lambda s_: cuda_resize.resize_place(
         s_, 1, *taps, slot, 0, 0), raws), None, None, None,
@@ -2326,11 +2425,16 @@ def phase24_staged(dev, smi, cases):
     u8, bf = t["uint8"], t["bf16"]
     t["uint8"]["worst"] = worst
     say(f"phase24 #4 vs plain (exact), uint8 and bf16 bands: {checked} "
-        f"launches (slot 0 at {sched.grid} = {tiles} tiles on the default "
-        f"grid, {tiles // 4} and 1 CTAs; phase 3's sources oriented on the "
-        f"card at 5 CTAs, {odd} of odd width) max |diff| {worst}, differing "
-        f"px {ndiff}; refused by the schedule: {', '.join(refused)} | slot 0 "
-        f"equal to #1 in both dtypes")
+        f"launches (slot 0 at {sched.grid} = {tiles} tiles of "
+        f"{sched.tile_r}x{sched.tile_c} from {sched.band_h}x{sched.band_w} "
+        f"bands on the default grid ({u8['ctas']} CTAs uint8, {bf['ctas']} "
+        f"bf16; shared memory {u8['smem_bytes']} / {bf['smem_bytes']} "
+        f"bytes), {sms}, 72, 5 and 1 CTAs; phase 3's sources oriented on "
+        f"the card "
+        f"at 5 CTAs, {odd} of odd width) max |diff| {worst}, differing px "
+        f"{ndiff}; refused by the schedule: {', '.join(refused)} | slot 0 "
+        f"equal to #1 in both dtypes"
+        + ("" if old is None else " and to the previous body (0 px)"))
     say(f"phase24 main path: profile_bf16_stage.run in this process, "
         f"launches #1/#2/#3/#4 {launched} | " + " | ".join(lines))
     say(f"phase24 python -m imagestitching_tpu_torch.tools.profile_bf16_stage"
@@ -2340,19 +2444,33 @@ def phase24_staged(dev, smi, cases):
         f"brackets) uint8 {sub['times']['uint8 bands']['ms']:.4f} "
         f"({_fmt(sub['times']['uint8 bands']['busy_ms'])}) bf16 "
         f"{sub['times']['bf16 bands']['ms']:.4f} "
-        f"({_fmt(sub['times']['bf16 bands']['busy_ms'])}), speedup "
+        f"({_fmt(sub['times']['bf16 bands']['busy_ms'])}), host us a launch "
+        f"uint8 {sub['times']['uint8 bands']['host_us']:.2f} bf16 "
+        f"{sub['times']['bf16 bands']['host_us']:.2f}, speedup "
         f"{sub['speedup']:.2f}x")
     say(f"phase24 slot 0 ({p.raw_w}x{p.raw_h} -> {n_cols}x{n_rows}; ms per "
         f"call, CUDA events median of 10x5 in two rounds, profiler busy in "
         f"brackets; each launch on the next of {u8['copies']} uint8 / "
         f"{bf['copies']} bf16 source copies, beyond the {l2} bytes of L2): "
         f"#4 uint8 {u8['kernel_ms']:.4f} ({_fmt(u8['kernel_busy'])}) bf16 "
-        f"{bf['kernel_ms']:.4f} ({_fmt(bf['kernel_busy'])}) | #1 "
+        f"{bf['kernel_ms']:.4f} ({_fmt(bf['kernel_busy'])}) | #4 at one CTA "
+        f"an SM ({sms} CTAs) uint8 {u8['one_an_sm_ms']:.4f} "
+        f"({_fmt(u8['one_an_sm_busy'])}) bf16 {bf['one_an_sm_ms']:.4f} "
+        f"({_fmt(bf['one_an_sm_busy'])}) | previous body "
+        f"uint8 {_fmt(u8['parent_ms'])} ({_fmt(u8['parent_busy'])}) bf16 "
+        f"{_fmt(bf['parent_ms'])} ({_fmt(bf['parent_busy'])}) | #1 "
         f"{t1['kernel_ms']:.4f} ({_fmt(t1['kernel_busy'])}) | F.interpolate "
         f"{u8['library_ms']:.4f} ({_fmt(u8['library_busy'])}) | plain uint8 "
         f"{u8['plain_ms']:.4f} bf16 {bf['plain_ms']:.4f} | bound uint8 "
         f"{u8['bound_ms']:.6f} ({u8['bytes']} bytes) bf16 "
         f"{bf['bound_ms']:.6f} ({bf['bytes']} bytes) at 3.35 TB/s | {smi}")
+    say(f"phase24 host us per launch (200 launches, no synchronise among "
+        f"them): prepared call uint8 {u8['host_us']:.2f} bf16 "
+        f"{bf['host_us']:.2f} | one-shot resize_place_staged uint8 "
+        f"{u8['oneshot_host_us']:.2f} bf16 {bf['oneshot_host_us']:.2f} | "
+        f"previous body's one-shot call uint8 "
+        + ("not measured" if old is None else
+           f"{u8['parent_host_us']:.2f} bf16 {bf['parent_host_us']:.2f}"))
     return {"launches": launched[3], "t": t, "kernel1": t1,
             "profiler": rec}
 
@@ -2365,6 +2483,11 @@ def main() -> None:
                     "(for example `git show HEAD~1:imagestitching_tpu_torch/"
                     "csrc/resize_place.cu`) to build and time beside the "
                     "current body in phases 6, 10 and 15")
+    ap.add_argument("--parent-staged-source", help="a previous csrc/"
+                    "resize_place_staged.cu (for example `git show HEAD~1:"
+                    "imagestitching_tpu_torch/csrc/resize_place_staged.cu`) "
+                    "to build and time beside the current kernel #4 in "
+                    "phase 24")
     args = ap.parse_args()
 
     # ---- phase 1: environment
@@ -2411,6 +2534,13 @@ def main() -> None:
         say(f"phase2 parent body: built {args.parent_source} in "
             f"{time.perf_counter() - t0:.3f} s, timed beside the current "
             "body in phases 6, 10 and 15")
+    parent_staged = None
+    if args.parent_staged_source:
+        t0 = time.perf_counter()
+        parent_staged = load_parent_staged(args.parent_staged_source)
+        say(f"phase2 previous kernel #4: built {args.parent_staged_source} "
+            f"in {time.perf_counter() - t0:.3f} s, timed beside the current "
+            "body in phase 24")
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -2638,7 +2768,7 @@ def main() -> None:
     marks.append(("23", time.perf_counter()))
 
     # ---- phase 24: kernel #4 and its profiler
-    r24 = phase24_staged(dev, smi, cases)
+    r24 = phase24_staged(dev, smi, cases, parent_staged)
     marks.append(("24", time.perf_counter()))
     say("seconds by phase (host clock): " + " ".join(
         f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in
@@ -2697,9 +2827,14 @@ def main() -> None:
               bf16={"ms": r(r24["t"]["bf16"]["kernel_ms"]),
                     "busy_ms": r(r24["t"]["bf16"]["kernel_busy"]),
                     "plain_ms": r(r24["t"]["bf16"]["plain_ms"]),
-                    "bound_ms": r(r24["t"]["bf16"]["bound_ms"])},
+                    "bound_ms": r(r24["t"]["bf16"]["bound_ms"]),
+                    "parent_ms": r(r24["t"]["bf16"]["parent_ms"]),
+                    "parent_busy_ms": r(r24["t"]["bf16"]["parent_busy"])},
               kernel1={"ms": r(r24["kernel1"]["kernel_ms"]),
                        "busy_ms": r(r24["kernel1"]["kernel_busy"])},
+              host_us={k: {h: r(r24["t"][k][h]) for h in (
+                  "host_us", "oneshot_host_us", "parent_host_us")}
+                  for k in ("uint8", "bf16")},
               profiler_speedup=r(r24["profiler"]["speedup"]))]}
     say(json.dumps(record))
     say(f"gpu: {smi}")

@@ -156,15 +156,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i64,                              # region, region rows
         p]                                   # stream
     lib.resize_place_window_launch.restype = i32
-    lib.resize_place_staged_launch.argtypes = [
-        p, i32, i64, i64, i64, i32,          # src, elt bytes, pitch, H, W, C
-        p, p, i32, i32,                      # ri0, rw, n_rows, k_rows
-        p, p, i32, i32,                      # ci0, cw, n_cols, k_cols
-        p, p, i32, i32,                      # row/col band starts, band h, w
-        i32, i32,                            # tile rows, cols
-        p, i64, i64, i64, i64,               # canvas, H, W, r0, c0
-        i32, p]                              # ctas, stream
-    lib.resize_place_staged_launch.restype = i32
+    lib.resize_place_staged_args_size.argtypes = []
+    lib.resize_place_staged_args_size.restype = i32
+    lib.resize_place_staged_prepare.argtypes = [p]      # StagedArgs*
+    lib.resize_place_staged_prepare.restype = i32
+    lib.resize_place_staged_run.argtypes = [p, p, p]    # args, src, stream
+    lib.resize_place_staged_run.restype = i32
     lib.resize_place_error_string.argtypes = [i32]
     lib.resize_place_error_string.restype = ctypes.c_char_p
 

@@ -7,17 +7,19 @@ host, from the root of a checkout:
 
 It solves BASELINE config 5's nine shapes (mode "min", gap 4), prints slot
 0's geometry (a 1920x1080 source into a 1024x576 slot: the tile, the band
-and the grid of kernel #4), makes a seeded uint8 source and stages it as
-uint8 and as bf16 (:func:`..ops.staged_resize.stage_source`, outside any
-timed window).  Parity comes first: the two variants, the plain version and
-kernel #1 on the same slot must agree bit for bit, or it exits 1.  Then it
-times each variant in ms per slot and MP/s, by CUDA events (the median of
-``--rounds`` rounds of ``--reps`` launches) and by the profiler's device
+and, per band dtype, kernel #4's grid, TMA boxes and shared memory), makes
+a seeded uint8 source and stages it as uint8 and as bf16
+(:func:`..ops.staged_resize.stage_source`, outside any timed window), and
+prepares one :class:`..ops.staged_resize.StagedLaunch` per band dtype.
+Parity comes first: the two variants, the plain version and kernel #1 on
+the same slot must agree bit for bit, or it exits 1.  Then it times each
+variant's prepared call in ms per slot and MP/s, by CUDA events (the median
+of ``--rounds`` rounds of ``--reps`` launches) and by the profiler's device
 busy time, each launch reading the next of enough distinct source copies to
-exceed the card's L2 cache, so that the bound is device memory's; and
-prints the speedup (uint8 time over bf16 time) and the bound.  The last
-line is a JSON record of the run.  Without CUDA it raises: there is no CPU
-mode.
+exceed the card's L2 cache, so that the bound is device memory's, and the
+host microseconds a launch takes; and prints the speedup (uint8 time over
+bf16 time) and the bound.  The last line is a JSON record of the run.
+Without CUDA it raises: there is no CPU mode.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import itertools
 import json
 import statistics
 import sys
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -71,6 +74,20 @@ def events_ms(fn, reps: int, rounds: int) -> float:
         b.synchronize()
         samples.append(a.elapsed_time(b) / reps)
     return statistics.median(samples)
+
+
+def host_us(fn, reps: int) -> float:
+    """Host microseconds per call of ``fn``: the wall clock of ``reps``
+    calls with no synchronise among them, over ``reps``, after a warm-up
+    call and a synchronise (the device may still run when it stops)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def busy_ms(fn, bound: float, reps: int = 20,
@@ -122,35 +139,33 @@ def run(reps: int = 200, rounds: int = 5, seed: int = 0,
     m_h, m_w = p.raw_h, p.raw_w          # orientation 1
     sched = staged_resize.staged_schedule(ri0, ci0, rw.shape[1],
                                           cw.shape[1], m_h, m_w, 3)
-    props = torch.cuda.get_device_properties(dev)
     tiles = sched.grid[0] * sched.grid[1]
-    grid = min(tiles, 2 * props.multi_processor_count)
-    smem = {dt: staged_resize.smem_bytes(
-        sched.tile_r, sched.tile_c, sched.band_h, sched.band_w, 3, elt)
-        for dt, elt in ((torch.uint8, 1), (torch.bfloat16, 2))}
-    out(f"device: {torch.cuda.get_device_name(dev)}")
-    out(f"slot0: {p.raw_w}x{p.raw_h} -> {n_cols}x{n_rows}, K=({rw.shape[1]},"
-        f"{cw.shape[1]}), tile {sched.tile_r}x{sched.tile_c}, band "
-        f"{sched.band_h}x{sched.band_w}, grid {sched.grid} = {tiles} tiles "
-        f"on {grid} CTAs, ring of {staged_resize.SLOTS} bands: shared "
-        f"memory {smem[torch.uint8]} (uint8) / {smem[torch.bfloat16]} (bf16) "
-        f"bytes a CTA")
-
     rng = np.random.default_rng(seed)
     src = torch.from_numpy(rng.integers(0, 256, (m_h, m_w, 3),
                                         np.uint8)).to(dev)
     launches0 = staged_resize.staged_launches
     canvas = torch.empty((n_rows, n_cols, 3), dtype=torch.uint8, device=dev)
-
-    def launch(band):
-        staged_resize.resize_place_staged(band, *taps, canvas, 0, 0,
-                                          schedule=sched)
+    # prepared once per band dtype, the twin of the JAX script's build
+    bands = {dt: staged_resize.stage_source(src, dt) for dt in _NAMES}
+    launch = {dt: staged_resize.StagedLaunch(b, *taps, canvas, 0, 0,
+                                             schedule=sched)
+              for dt, b in bands.items()}
+    args = {dt: launch[dt].args for dt in _NAMES}
+    out(f"device: {torch.cuda.get_device_name(dev)}")
+    out(f"slot0: {p.raw_w}x{p.raw_h} -> {n_cols}x{n_rows}, K=({rw.shape[1]},"
+        f"{cw.shape[1]}), tile {sched.tile_r}x{sched.tile_c}, band "
+        f"{sched.band_h}x{sched.band_w}, grid {sched.grid} = {tiles} tiles, "
+        f"ring of {staged_resize.SLOTS} bands; " + "; ".join(
+            f"{_NAMES[dt]}: {a.grid} CTAs ({a.per_sm} fit an SM), a band "
+            f"row in {a.boxes} TMA boxes of {a.box_bytes} bytes x "
+            f"{a.box_rows} rows, shared memory {a.smem_bytes} bytes a CTA"
+            for dt, a in args.items()))
 
     # parity first: both variants, the plain version and kernel #1
     got = {}
     for dt in _NAMES:
         canvas.fill_(0)
-        launch(staged_resize.stage_source(src, dt))
+        launch[dt](bands[dt])
         got[dt] = canvas.clone()
     plain = staged_resize.resize_place_staged_ref(src, *taps)
     one = torch.zeros_like(canvas)
@@ -170,13 +185,14 @@ def run(reps: int = 200, rounds: int = 5, seed: int = 0,
     record = {"device": torch.cuda.get_device_name(dev),
               "slot": [n_rows, n_cols], "tile": [sched.tile_r, sched.tile_c],
               "band": [sched.band_h, sched.band_w], "grid": list(sched.grid),
-              "ctas": grid, "parity": parity,
+              "ctas": args[torch.uint8].grid, "parity": parity,
               "ok": all(v == (0, 0) for v in parity.values())}
     if not record["ok"]:
         return record
 
     mp = n_rows * n_cols / 1e6
-    l2 = getattr(props, "L2_cache_size", 50 * 2 ** 20)
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
+                 50 * 2 ** 20)
     times = {}
     for dt, name in _NAMES.items():
         nbytes = staged_resize.moved_bytes(src.shape, n_rows, n_cols, dt)
@@ -185,16 +201,19 @@ def run(reps: int = 200, rounds: int = 5, seed: int = 0,
         n = l2 // (src.numel() * (1 if dt == torch.uint8 else 2)) + 1
         copies = itertools.cycle([staged_resize.stage_source(src, dt)
                                   for _ in range(n)])
-        step = (lambda: launch(next(copies)))
+        step = (lambda f=launch[dt]: f(next(copies)))
         ms = events_ms(step, reps, rounds)
         busy = busy_ms(step, bound, reps)
+        host = host_us(step, reps)
         times[name] = {"ms": ms, "busy_ms": busy, "bound_ms": bound,
-                       "bytes": nbytes, "copies": n}
+                       "host_us": host, "bytes": nbytes, "copies": n,
+                       "ctas": args[dt].grid,
+                       "smem_bytes": args[dt].smem_bytes}
         busy_txt = "not measured" if busy is None else (
             f"{busy:.4f} ms ({mp / busy * 1e3:.0f} MP/s)")
         out(f"{name}: {ms:.4f} ms/slot ({mp / ms * 1e3:.0f} MP/s) by CUDA "
             f"events, busy {busy_txt}, bound {bound:.4f} ms ({nbytes} bytes "
-            f"at 3.35 TB/s), {n} source copies")
+            f"at 3.35 TB/s), host {host:.2f} us a launch, {n} source copies")
         del copies
     u8, bf = times[_NAMES[torch.uint8]], times[_NAMES[torch.bfloat16]]
     speedup = u8["ms"] / bf["ms"]

@@ -299,8 +299,9 @@ def test_kernel_source_is_in_the_package():
     assert "int resize_place_window_launch(" in src
     with open(os.path.join(_PORT, "csrc", "resize_place_staged.cu")) as f:
         src = f.read()
-    assert 'extern "C"' in src and "int resize_place_staged_launch(" in src
-    assert "cp.async.cg.shared.global" in src
+    assert 'extern "C"' in src and "int resize_place_staged_run(" in src
+    assert "int resize_place_staged_prepare(StagedArgs* a)" in src
+    assert "cp.async.bulk.tensor.2d" in src and "cuTensorMapEncodeTiled" in src
 
 
 def test_cli_module_runs_with_help():

@@ -15,10 +15,11 @@ the same body on a source row window, so its chunks put together equal the
 single-job kernel's region bit for bit, and a banded job equals the resident
 one.  Whole jobs are held to the float64 oracle within 1 step.  Kernel #4
 computes from bands of an oriented source staged in a ring of three, held
-as uint8 or bf16: both equal its plain version at the default grid, at
-grids where each CTA walks 4 or all of the tiles (the ring wraps), with one
-channel and with an odd width's padded pitch, and equal #1 on config 5's
-slot 0.
+as uint8 or bf16: both equal its plain version at the persistent default
+grid, at grids where each CTA walks 8, about 115 or all of the tiles (the
+ring wraps), with one channel and with an odd width's padded pitch, and
+equal #1 on config 5's slot 0; its prepared call equals the one-shot
+wrapper, and a wrong pitch or a refused launch raises.
 
 The cases reach what the tiled body does differently: tiles cut by the
 region's edge at odd canvas columns, a 12x bilinear downscale of a
@@ -616,11 +617,11 @@ def _staged_vs_plain(src, taps, dtype, r0=0, c0=0, **kw):
 
 
 @pytest.mark.parametrize("dtype", _DTYPES, ids=["uint8", "bf16"])
-@pytest.mark.parametrize("ctas", [0, 72, 1], ids=["default", "ring-4",
-                                                  "one-cta"])
+@pytest.mark.parametrize("ctas", [0, 72, 5, 1], ids=[
+    "default", "ring-8", "five-ctas", "one-cta"])
 def test_staged_kernel_equals_plain_on_slot0(card, dtype, ctas):
-    """Slot 0 at the default grid (min(tiles, 2 x SMs)), at 72 CTAs (each
-    walks 4 of the 288 tiles, so the ring of 3 wraps) and at 1 CTA."""
+    """Slot 0 at the persistent default grid, at 72 CTAs (each walks 8 of
+    the 576 tiles, so the ring of 3 wraps), at 5 and at 1 CTA."""
     src, taps = _slot0(card)
     d, outside, _ = _staged_vs_plain(src, taps, dtype, 7, 3, ctas=ctas)
     assert d == 0 and outside
@@ -671,6 +672,18 @@ def test_staged_kernel_equals_plain_on_oriented_sources(card, name):
 @pytest.mark.parametrize("shape,c", [((563, 1001), 3), ((217, 333), 1)],
                          ids=["odd-rgb", "odd-gray"])
 def test_staged_kernel_pads_an_odd_pitch(card, dtype, shape, c):
+    _odd_pitch(card, dtype, shape, c, 3)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=["uint8", "bf16"])
+@pytest.mark.parametrize("shape,c", [((563, 1001), 3), ((217, 333), 1)],
+                         ids=["odd-rgb", "odd-gray"])
+def test_staged_kernel_pads_an_odd_pitch_at_the_default_grid(card, dtype,
+                                                             shape, c):
+    _odd_pitch(card, dtype, shape, c, 0)
+
+
+def _odd_pitch(card, dtype, shape, c, ctas):
     """Odd widths: the band source's rows are padded to 16 pixels, so a band
     may read past the last real pixel into the pad, never past the row."""
     h, w = shape
@@ -681,5 +694,79 @@ def test_staged_kernel_pads_an_odd_pitch(card, dtype, shape, c):
     src = torch.from_numpy(raw).to(card)
     assert staged_resize.stage_source(src, dtype).stride(0) % (16 * c) == 0
     d, outside, _ = _staged_vs_plain(src, _taps(p, plan.filter, card), dtype,
-                                     ctas=3)
+                                     ctas=ctas)
     assert d == 0 and outside
+
+
+def test_staged_args_size_is_the_librarys(card):
+    import ctypes
+
+    lib = _build.load()
+    assert ctypes.sizeof(staged_resize.StagedArgs) \
+        == lib.resize_place_staged_args_size()
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=["uint8", "bf16"])
+def test_staged_default_grid_is_persistent(card, dtype):
+    """Slot 0's default grid: as many CTAs as the SMs hold at the kernel's
+    occupancy, at most one a tile, which for bf16 bands is at least the
+    two CTAs an SM the tile picker planned for; the library's shared
+    memory is the host's."""
+    src, taps = _slot0(card)
+    band = staged_resize.stage_source(src, dtype)
+    canvas = torch.zeros((576, 1024, 3), dtype=torch.uint8, device=card)
+    launch = staged_resize.StagedLaunch(band, *taps, canvas, 0, 0)
+    a, s = launch.args, launch.schedule
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert a.tiles == 576 and a.per_sm >= staged_resize.CTAS_PER_SM
+    assert a.grid == min(a.tiles, sms * a.per_sm)
+    elt = 2 if dtype == torch.bfloat16 else 1
+    assert a.smem_bytes == staged_resize.smem_bytes(
+        s.tile_r, s.tile_c, s.band_h, s.band_w, 3, elt, 2, 2)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=["uint8", "bf16"])
+def test_staged_prepared_call_equals_one_shot(card, dtype):
+    """One prepared launch over three sources of slot 0's shape, each equal
+    to the one-shot wrapper's result on the same source."""
+    _, taps = _slot0(card)
+    gen = torch.Generator(device=card).manual_seed(11)
+    canvas = torch.zeros((576, 1024, 3), dtype=torch.uint8, device=card)
+    one = torch.zeros_like(canvas)
+    srcs = [staged_resize.stage_source(torch.randint(
+        0, 256, (1080, 1920, 3), generator=gen, device=card,
+        dtype=torch.uint8), dtype) for _ in range(3)]
+    launch = staged_resize.StagedLaunch(srcs[0], *taps, canvas, 0, 0)
+    before = staged_resize.staged_launches
+    for b in srcs:
+        launch(b)
+        staged_resize.resize_place_staged(b, *taps, one, 0, 0)
+        assert torch.equal(canvas, one)
+    assert staged_resize.staged_launches == before + 6
+
+
+def test_staged_prepared_call_rejects_a_wrong_pitch(card):
+    src, taps = _slot0(card)
+    band = staged_resize.stage_source(src)
+    canvas = torch.zeros((576, 1024, 3), dtype=torch.uint8, device=card)
+    launch = staged_resize.StagedLaunch(band, *taps, canvas, 0, 0)
+    wide = staged_resize.stage_source(torch.cat([src, src[:, :16]], 1))
+    before = staged_resize.staged_launches
+    with pytest.raises(ValueError):
+        launch(wide[:, :1920])
+    assert staged_resize.staged_launches == before
+
+
+def test_staged_refused_launch_raises(card):
+    """A launch the card refuses (shared memory above the 227 KB the
+    kernel may take, forced into the prepared arguments) raises
+    RuntimeError and counts no launch."""
+    src, taps = _slot0(card)
+    band = staged_resize.stage_source(src)
+    canvas = torch.zeros((576, 1024, 3), dtype=torch.uint8, device=card)
+    launch = staged_resize.StagedLaunch(band, *taps, canvas, 0, 0)
+    launch.args.smem_bytes = 240 * 1024
+    before = staged_resize.staged_launches
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        launch(band)
+    assert staged_resize.staged_launches == before

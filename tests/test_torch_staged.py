@@ -118,10 +118,10 @@ def test_uint8_and_bf16_band_sources_agree(name):
     assert torch.equal(u8, bf)
 
 
-def _check_bands(ri0, ci0, k_rows, k_cols, m_h, m_w, tile_r, tile_c):
+def _check_bands(ri0, ci0, k_rows, k_cols, m_h, m_w, tile_r, tile_c,
+                 align=staged_resize.BAND_ALIGN_C):
     b = staged_resize.band_schedule(ri0, ci0, k_rows, k_cols, m_h, m_w,
-                                    tile_r, tile_c)
-    align = staged_resize.ALIGN_C
+                                    tile_r, tile_c, align)
     w_pad = -(-m_w // align) * align
     assert b.row_starts.dtype == np.int32 and b.col_starts.dtype == np.int32
     assert len(b.row_starts) == -(-len(ri0) // tile_r)
@@ -141,8 +141,11 @@ def _check_bands(ri0, ci0, k_rows, k_cols, m_h, m_w, tile_r, tile_c):
 
 
 @pytest.mark.parametrize("name", sorted(_CASES))
-@pytest.mark.parametrize("tile", [(32, 64), (7, 16), (1, 48)])
+@pytest.mark.parametrize("tile", [(32, 64), (7, 16), (1, 48), (16, 64),
+                                  (2, 16)])
 def test_every_clamped_tap_lies_in_its_band(name, tile):
+    """Columns start at any pixel: the kernel starts a band's TMA boxes on
+    the 16-byte boundary at or before it."""
     plan, _, p, _, oriented = _job(name)
     ri0, rw, ci0, cw = _taps(p, plan.filter)
     m_h, m_w = oriented.shape[:2]
@@ -150,29 +153,87 @@ def test_every_clamped_tap_lies_in_its_band(name, tile):
                  m_w, *tile)
 
 
+@pytest.mark.parametrize("name", sorted(_CASES))
+@pytest.mark.parametrize("tile", [(32, 64), (16, 64), (2, 16)])
+def test_every_clamped_tap_lies_in_its_16_pixel_aligned_band(name, tile):
+    """The first version's schedule, columns aligned to 16 pixels, as
+    chip_smoke.py builds it for the previous body."""
+    plan, _, p, _, oriented = _job(name)
+    ri0, rw, ci0, cw = _taps(p, plan.filter)
+    m_h, m_w = oriented.shape[:2]
+    _check_bands(ri0.numpy(), ci0.numpy(), rw.shape[1], cw.shape[1], m_h,
+                 m_w, *tile, 16)
+
+
+def _ctas_an_sm(smem):
+    """CTAs of ``smem`` bytes an SM's shared memory holds."""
+    return staged_resize.SM_SMEM // (smem + staged_resize.CTA_RESERVED)
+
+
 def test_band_schedule_of_slot0():
-    """Config 5's slot 0: 32x64 tiles from 60x144 bands, 18 x 16 tiles; the
-    ring of three bf16 bands fits Hopper's 227 KB."""
+    """Config 5's slot 0: 16x64 tiles from 30x120 bands (columns unaligned),
+    36 x 16 = 576 tiles, the largest tile whose ring of three bf16 bands
+    leaves room for two CTAs on an SM (the 32x64 tile's, from 60-row bands,
+    holds one); a uint8 ring leaves room for four.  The grid the kernel
+    launches is the SMs times the CTAs they hold, at most one a tile:
+    on 132 SMs, 528 CTAs of uint8 bands walk 1 or 2 tiles (480 of them
+    one), and 264 of bf16 bands 2 or 3."""
     plan, p = profile_bf16_stage.slot0()
     assert (p.raw_w, p.raw_h, p.orientation) == (1920, 1080, 1)
     assert (p.row_span, p.col_span) == ((0, 576), (0, 1024))
     ri0, rw, ci0, cw = _taps(p, plan.filter)
     s = staged_resize.staged_schedule(ri0, ci0, 2, 2, 1080, 1920, 3)
-    assert (s.tile_r, s.tile_c, s.band_h, s.band_w) == (32, 64, 60, 144)
-    assert s.grid == (18, 16) and s.row_starts.dtype == torch.int32
-    assert staged_resize.smem_bytes(32, 64, 60, 144, 3, 2) \
-        <= staged_resize.SMEM_CAP
-    _check_bands(ri0.numpy(), ci0.numpy(), 2, 2, 1080, 1920, 32, 64)
+    assert (s.tile_r, s.tile_c, s.band_h, s.band_w) == (16, 64, 30, 120)
+    assert s.grid == (36, 16) and s.row_starts.dtype == torch.int32
+    tiles = s.grid[0] * s.grid[1]
+    for elt, boxes, kb in ((1, (208, 192, 2, 30, 1, 6272), 46488),
+                           (2, (208, 192, 4, 30, 1, 6272), 84120)):
+        assert staged_resize.box_geometry(30, 120, 3 * elt) == boxes
+        assert staged_resize.smem_bytes(16, 64, 30, 120, 3, elt, 2, 2) == kb
+    assert _ctas_an_sm(84120) >= staged_resize.CTAS_PER_SM == 2
+    assert _ctas_an_sm(46488) >= 4 and 84120 <= staged_resize.SMEM_CAP
+    big = staged_resize.band_schedule(ri0.numpy(), ci0.numpy(), 2, 2, 1080,
+                                      1920, 32, 64)
+    assert (big.band_h, big.band_w) == (60, 120)
+    big_smem = staged_resize.smem_bytes(32, 64, 60, 120, 3, 2, 2, 2)
+    assert big_smem <= staged_resize.SMEM_CAP and _ctas_an_sm(big_smem) == 1
+    for ctas, walks in ((132 * 4, (480, 48, 0)), (132 * 2, (0, 216, 48))):
+        per_cta = [len(range(b, tiles, ctas)) for b in range(ctas)]
+        assert tuple(per_cta.count(n) for n in (1, 2, 3)) == walks
+    _check_bands(ri0.numpy(), ci0.numpy(), 2, 2, 1080, 1920, 16, 64)
+
+
+@pytest.mark.parametrize("band_h,band_w,px,want", [
+    (30, 120, 3, (208, 192, 2, 30, 1, 6272)),      # slot 0, uint8 RGB
+    (30, 120, 6, (208, 192, 4, 30, 1, 6272)),      # slot 0, bf16 RGB
+    (5, 16, 1, (48, 32, 1, 5, 1, 256)),            # one box
+    (1, 1, 3, (48, 32, 1, 1, 1, 128)),             # one pixel
+    (300, 257, 1, (160, 144, 2, 150, 2, 48000)),   # tall: two row boxes
+])
+def test_box_geometry(band_h, band_w, px, want):
+    """Boxes are whole 16 bytes, at most 256 bytes by 256 rows, 16 bytes
+    longer than their step (no pixel straddles two), together at least the
+    band and the up to 15 bytes before it, each column of them 128-byte
+    aligned."""
+    got = staged_resize.box_geometry(band_h, band_w, px)
+    assert got == want
+    box_bytes, step, boxes, box_rows, row_boxes, stride = got
+    assert box_bytes % 16 == 0 and box_bytes <= 256
+    assert step == box_bytes - 16 and step % 16 == 0
+    assert box_rows <= 256 and boxes * step >= band_w * px + 15
+    assert row_boxes * box_rows >= band_h and stride % 128 == 0
+    assert stride >= row_boxes * box_rows * box_bytes
 
 
 def test_band_schedule_raises_when_a_band_misses_its_taps(monkeypatch):
     """The guard behind the kernel's unchecked taps: a band sized one
-    alignment short (a rounding down) leaves a tile's taps outside."""
+    alignment short (a rounding down) leaves a tile's taps outside; with
+    columns aligned to 16 pixels, where the rounding is visible."""
     ri0 = np.arange(3, 67, 2, dtype=np.int32)     # starts off the 16s
-    staged_resize.band_schedule(ri0, ri0, 2, 2, 80, 80, 8, 8)
+    staged_resize.band_schedule(ri0, ri0, 2, 2, 80, 80, 8, 8, 16)
     monkeypatch.setattr(staged_resize, "_round_up", lambda v, m: v // m * m)
     with pytest.raises(ValueError, match="does not cover"):
-        staged_resize.band_schedule(ri0, ri0, 2, 2, 80, 80, 8, 8)
+        staged_resize.band_schedule(ri0, ri0, 2, 2, 80, 80, 8, 8, 16)
     with pytest.raises(ValueError):
         staged_resize.band_schedule(ri0, ri0, 2, 2, 80, 80, 0, 8)
 
@@ -235,11 +296,14 @@ def _slot(name="slot0-quarter"):
     return oriented, taps, canvas
 
 
-@pytest.mark.parametrize("bad", [
-    "float32", "int16", "canvas-dtype", "gray-canvas", "odd-pitch",
-    "strided-cols", "short-storage", "region-right", "region-below",
-    "negative-r0", "other-schedule", "negative-ctas", "2d"])
-def test_wrapper_rejects(bad):
+_BAD = ["float32", "int16", "canvas-dtype", "gray-canvas", "odd-pitch",
+        "strided-cols", "short-storage", "region-right", "region-below",
+        "negative-r0", "other-schedule", "negative-ctas", "2d"]
+
+
+def _bad_call(bad):
+    """The operands of slot 0 at 1/4 size with one thing wrong: (band
+    source, taps, canvas, r0, c0, keywords)."""
     oriented, taps, canvas = _slot()
     band = staged_resize.stage_source(oriented)
     r0 = c0 = 0
@@ -276,8 +340,125 @@ def test_wrapper_rejects(bad):
         kw["ctas"] = -1
     else:
         band = band[..., 0]
+    return band, taps, canvas, r0, c0, kw
+
+
+@pytest.mark.parametrize("bad", _BAD)
+def test_wrapper_rejects(bad):
+    band, taps, canvas, r0, c0, kw = _bad_call(bad)
     with pytest.raises(ValueError):
         staged_resize.resize_place_staged(band, *taps, canvas, r0, c0, **kw)
+
+
+@pytest.mark.parametrize("bad", _BAD)
+def test_prepared_launch_rejects_at_preparation(bad):
+    band, taps, canvas, r0, c0, kw = _bad_call(bad)
+    with pytest.raises(ValueError):
+        staged_resize.StagedLaunch(band, *taps, canvas, r0, c0, **kw)
+
+
+@pytest.mark.parametrize("other", ["shape", "dtype", "device", "pitch",
+                                   "misaligned"])
+def test_prepared_launch_rejects_another_source_at_the_call(other):
+    """A call checks the source against what was prepared: shape, dtype,
+    device and strides as integer compares, and the data pointer's
+    16-byte alignment."""
+    oriented, taps, canvas = _slot()
+    band = staged_resize.stage_source(oriented)
+    launch = staged_resize.StagedLaunch(band, *taps, canvas, 0, 0)
+    h, w, c = oriented.shape
+    if other == "shape":
+        src = staged_resize.stage_source(oriented[:-1])
+    elif other == "dtype":
+        src = staged_resize.stage_source(oriented, torch.bfloat16)
+    elif other == "device":
+        src = torch.empty_like(band, device="meta")
+    elif other == "pitch":            # rows of 496 pixels, not 480
+        src = staged_resize.stage_source(
+            torch.cat([oriented, oriented[:, :16]], 1))[:, :w]
+    else:                             # one byte off a 16-byte boundary
+        src = torch.zeros((h * w * c + 16,), dtype=torch.uint8)[1:] \
+            .as_strided((h, w, c), (w * c, c, 1))
+    before = canvas.clone()
+    with pytest.raises(ValueError):
+        launch(src)
+    assert torch.equal(canvas, before)
+    launch(band)
+
+
+@pytest.mark.parametrize("offset", [0, 16])
+def test_prepared_launch_checks_the_storage_past_the_calls_offset(offset):
+    """The kernel reads a band source through its last row's padded width.
+    A call's source of the prepared shape and strides, 16 bytes further
+    into a buffer that holds the view but not its last row's pad, is
+    refused; the same buffer at offset 0 holds it all and is taken."""
+    plan, _, p, _, oriented = _job("upscale-odd")
+    h, w, c = oriented.shape
+    pitch = -(-w // 16) * 16 * c
+    assert pitch > w * c                  # the rows have a pad
+    band = staged_resize.stage_source(oriented)
+    taps = _taps(p, plan.filter)
+    canvas = torch.zeros((len(taps[0]), len(taps[2]), c), dtype=torch.uint8)
+    launch = staged_resize.StagedLaunch(band, *taps, canvas, 0, 0)
+    buf = torch.zeros((16 + (h - 1) * pitch + w * c + 1,), dtype=torch.uint8)
+    src = buf.as_strided((h, w, c), band.stride(), offset)
+    src.copy_(oriented)
+    assert src.data_ptr() % 16 == 0
+    if offset:
+        with pytest.raises(ValueError, match="padded width"):
+            launch(src)
+        assert not canvas.any()
+    else:
+        launch(src)
+        assert torch.equal(canvas, staged_resize.resize_place_staged_ref(
+            src, *taps))
+
+
+def test_prepared_launch_on_cpu_places_the_plain_version():
+    """Prepared once, called on two band sources (uint8, then bf16 copies
+    of the same shape go through their own launch): each call places the
+    plain version of the source it was given; no kernel launch counted."""
+    oriented, taps, canvas = _slot()
+    rng = np.random.default_rng(9)
+    launches = staged_resize.staged_launches
+    for dt in (torch.uint8, torch.bfloat16):
+        launch = staged_resize.StagedLaunch(
+            staged_resize.stage_source(oriented, dt), *taps, canvas, 0, 0)
+        assert launch.args is None and launch.schedule.tile_c > 0
+        for _ in range(2):
+            src = staged_resize.stage_source(torch.from_numpy(rng.integers(
+                0, 256, tuple(oriented.shape), np.uint8)), dt)
+            launch(src)
+            assert torch.equal(canvas, staged_resize.resize_place_staged_ref(
+                src, *taps))
+    assert staged_resize.staged_launches == launches
+
+
+def test_staged_args_fields_follow_the_c_struct():
+    """``StagedArgs`` mirrors ``struct StagedArgs`` of the kernel source
+    field by field, in order, with the C types' widths; its size is held
+    to the library's on the card (tests/test_torch_kernel.py)."""
+    import ctypes
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(staged_resize.__file__), "..",
+                        "csrc", "resize_place_staged.cu")
+    with open(path) as f:
+        body = re.search(r"struct StagedArgs \{(.*?)\n\};", f.read(),
+                         re.S).group(1)
+    widths = {"int64_t": ctypes.c_int64, "int32_t": ctypes.c_int32}
+    fields = []
+    for line in body.splitlines():
+        line = line.split("//")[0].strip()
+        if not line:
+            continue
+        m = re.match(r"(const )?(\w+)(\*?) ?(.*);$", line)
+        kind = ctypes.c_void_p if m.group(3) or "*" in m.group(4) \
+            else widths[m.group(2)]
+        for name in m.group(4).split(","):
+            fields.append((name.strip().lstrip("*"), kind))
+    assert fields == staged_resize.StagedArgs._fields_
 
 
 def test_wrapper_takes_a_dense_source_with_a_16_byte_pitch():
