@@ -28,10 +28,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
    kernel launches, checked against the oracle;
 5. export: ``stitch_to_file(stream=False)`` to PNG, decoded back;
 6. kernel times (CUDA events, and the profiler's device busy time) at
-   config 3's shapes beside the plain version's, the parent body's (with
-   ``--parent-source``), one ``F.interpolate`` call's and the bound (tap
-   footprint read once and regions written, at 3.35 TB/s); the kernel's
-   store checked bit for bit against the plain version's;
+   config 3's shapes: the prepared launch (``cuda_resize.PlaceLaunch``, as
+   the main path launches it) beside the one-shot shell, the plain
+   version, the parent body (with ``--parent-source``), one
+   ``F.interpolate`` call and the bound (tap footprint read once and
+   regions written, at 3.35 TB/s), and the host microseconds a launch of
+   each form takes; the prepared store checked bit for bit against the
+   one-shot shell's and the plain version's;
 7. where a warm config-3 job's time goes on the device (torch.profiler);
 8. the batched kernel against its plain version on the card, bit for bit,
    over phase 3's cases at B = 3 with other data per job, and against B
@@ -43,7 +46,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
    bit for bit, three jobs within 1 step of the oracle with the copy span
    exact; flush wall, jobs/s and MP/s, and a profiled warm flush;
 10. the same yardsticks for the batched kernel at config 5's shapes
-    (B = 64);
+    (B = 64), prepared beside one-shot;
 11. HTTP: ``StitchHTTPServer`` on localhost answers 4 concurrent
     ``POST /stitch`` with what ``imagestitching_tpu_torch.stitch`` gives;
 12. the windowed kernel (#3) against its plain version on the card, bit for
@@ -63,9 +66,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
     demotes to streamed, and under one below the canvas to banded, both
     equal to the resident canvas;
 15. the same yardsticks for the windowed kernel over config 4's 45 chunks
-    as the banded rung launches them, the host time per launch, and where
-    a streamed and a banded job's time goes (torch.profiler), the banded
-    one with no per-chunk tap upload;
+    as the banded rung launches them (the prepared ``WindowLauncher``)
+    beside the one-shot shell, and where a streamed and a banded job's
+    time goes (torch.profiler), the banded one with no per-chunk tap
+    upload;
 16. the overlapped scheduler: config 4-EXIF written as nine JPEG files with
     their orientation tags, through ``imagestitching_tpu_torch.stitch(files)``
     at the default ``RuntimeConfig`` (9 images, so ``overlap="auto"`` takes
@@ -130,7 +134,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
     beside the bound, ``F.interpolate``, #1, the plain version, the
     previous body (``--parent-staged-source``) and the prepared call at one
     CTA an SM, and the host microseconds a launch takes (prepared,
-    one-shot, previous).
+    one-shot, previous);
+25. #1-#3 at their main-path sites (config 3, config 5 at B = 64, config
+    4-EXIF's 45 banded chunks), prepared and one-shot, in a fresh process:
+    ``python -m imagestitching_tpu_torch.tools.profile_resize``, which
+    must exit 0 with every form equal bit for bit: CUDA events, busy time
+    (every launch recorded, as late in this process it is not) and host
+    microseconds a launch.
 
 Phases 4-15 pass ``overlap="never"``: they read the non-overlapped path,
 which 9-image jobs leave for the overlapped scheduler by default.  Each
@@ -142,9 +152,12 @@ stitch, the grid and the preview (``launches_merge``, ``launches_grid``,
 ``launches_preview``), phase 22 for #3 space-sharded
 (``launches_space_sharded``), phase 23 for #2 on the jobs mesh
 (``launches_jobs_mesh``) and phase 24's profiler run for #4, each with the
-counts set to 0 just before.  The last two lines are a JSON record of the
-kernels and the device line ``{"ok": true, "device": {...}}``.  Imports
-nothing of the JAX package.
+counts set to 0 just before.  Every one of those runs but the preview's
+(phase 21, which keeps the one-shot shell) and the profiler's must have
+launched #1-#3 through their prepared forms only
+(``cuda_resize.oneshot_launches`` stays 0).  The last two lines are a JSON
+record of the kernels and the device line ``{"ok": true, "device":
+{...}}``.  Imports nothing of the JAX package.
 Before them the card's name and power limit, as ``nvidia-smi`` gives them.
 """
 
@@ -472,19 +485,21 @@ def _fmt(v):
     return "not measured" if v is None else f"{v:.4f}"
 
 
-def time_four(kernel, plain, parent, library, bound, device_reps=20, **kw):
+def time_versions(kernel, plain, parent, library, bound, device_reps=20,
+                  oneshot=None, **kw):
     """Per call, by CUDA events (median of two rounds in the order plain,
-    kernel, parent, library, library, parent, kernel, plain) and the
-    profiler's device busy time (the profiler tool's ``busy_ms``: a trace
-    that reads below ``bound``, the kernel's bound in ms, which each of the
-    four must also meet, missed part of the work and is taken again), of
-    the kernel, its plain version, the parent body and the library call
+    kernel, oneshot, parent, library, library, parent, oneshot, kernel,
+    plain) and the profiler's device busy time (the profiler tool's
+    ``busy_ms``: a trace that reads below ``bound``, the kernel's bound in
+    ms, which each must also meet, missed part of the work and is taken
+    again), of the kernel (its prepared launch where it has one), its plain
+    version, the one-shot shell, the parent body and the library call
     (None: not measured)."""
     from imagestitching_tpu_torch.tools.profile_bf16_stage import busy_ms
 
-    fns = {"kernel": kernel, "plain": plain, "parent": parent,
-           "library": library}
-    order = ["plain", "kernel", "parent", "library"]
+    fns = {"kernel": kernel, "plain": plain, "oneshot": oneshot,
+           "parent": parent, "library": library}
+    order = ["plain", "kernel", "oneshot", "parent", "library"]
     ev = {k: [] for k in order}
     for name in order + order[::-1]:
         if fns[name] is not None:
@@ -497,11 +512,23 @@ def time_four(kernel, plain, parent, library, bound, device_reps=20, **kw):
     return out
 
 
+def host_pair(prepared, oneshot, launches, reps):
+    """Host microseconds a launch of the prepared form and of the one-shot
+    shell: ``reps`` calls of each (``launches`` launches a call) with no
+    synchronise among them."""
+    from imagestitching_tpu_torch.tools.profile_bf16_stage import host_us
+
+    return {"host_us": host_us(prepared, reps) / launches,
+            "oneshot_host_us": host_us(oneshot, reps) / launches}
+
+
 def phase6_times(dev, smi, plan, imgs, parent):
-    """Kernel #1 at config 3's placements: CUDA events and busy time beside
-    the parent body, ``F.interpolate`` (the library call) and the plain
-    version, the bound, and the kernel's store bit for bit against the
-    plain version's (and the parent's)."""
+    """Kernel #1 at config 3's placements: CUDA events and busy time of the
+    prepared launch (``cuda_resize.PlaceLaunch``, as ``stitch`` launches
+    it) beside the one-shot shell, the parent body, ``F.interpolate`` (the
+    library call) and the plain version, the bound, the host microseconds
+    a launch of each form takes, and the prepared store bit for bit against
+    the one-shot shell's and the plain version's (and the parent's)."""
     import torch
     from imagestitching_tpu_torch.core import geometry
     from imagestitching_tpu_torch.ops import cuda_resize
@@ -509,16 +536,22 @@ def phase6_times(dev, smi, plan, imgs, parent):
     canvas = torch.zeros((plan.canvas_h, plan.canvas_w, 3),
                          dtype=torch.uint8, device=dev)
     other = torch.zeros_like(canvas)
-    parts, rows, worst, ndiff, nparent = [], [], 0, 0, 0
+    once = torch.zeros_like(canvas)
+    parts, rows, worst, ndiff, nparent, nonce = [], [], 0, 0, 0, 0
+    kernels, oneshots = [], []
     for p in resampled(plan):
         src = src_on(imgs[p.index], dev)
         taps = taps_on(p, plan.filter, dev)
         r0, r1 = p.row_span
         c0, c1 = p.col_span
+        launch = cuda_resize.PlaceLaunch(src, p.orientation, *taps, canvas,
+                                         r0, c0)
 
-        def kernel(src=src, taps=taps, p=p, r0=r0, c0=c0):
-            cuda_resize.resize_place(src, p.orientation, *taps, canvas,
-                                     r0, c0)
+        def kernel(src=src, launch=launch):
+            launch(src, canvas)
+
+        def oneshot(src=src, taps=taps, p=p, r0=r0, c0=c0, out=canvas):
+            cuda_resize.resize_place(src, p.orientation, *taps, out, r0, c0)
 
         def plain(src=src, taps=taps, p=p, r0=r0, r1=r1, c0=c0, c1=c1):
             canvas[r0:r1, c0:c1] = cuda_resize.resize_place_ref(
@@ -531,44 +564,57 @@ def phase6_times(dev, smi, plan, imgs, parent):
         nbytes = footprint_bytes(*(x.cpu().numpy() for x in taps[:2]),
                                  disp_h, *(x.cpu().numpy() for x in taps[2:]),
                                  disp_w, 3) + (r1 - r0) * (c1 - c0) * 3
-        t = time_four(kernel, plain, old, interp_call(
+        t = time_versions(kernel, plain, old, interp_call(
             src, p.orientation, r1 - r0, c1 - c0, plan.filter),
-            bound_ms(nbytes))
+            bound_ms(nbytes), oneshot=oneshot)
         kernel()
         got = canvas[r0:r1, c0:c1].clone()
         plain()
         d = (got.int() - canvas[r0:r1, c0:c1].int()).abs()
         worst = max(worst, int(d.max()))
         ndiff += int((d > 0).any(dim=2).sum())
+        oneshot(out=once)
+        nonce += int((once[r0:r1, c0:c1] != got).any(dim=2).sum())
         if old is not None:
             old()
             nparent += int((other[r0:r1, c0:c1] != got).any(dim=2).sum())
         t["bound_ms"] = bound_ms(nbytes)
         t["bytes"] = nbytes
         parts.append(t)
+        kernels.append(kernel)
+        oneshots.append(oneshot)
         rows.append(f"#{p.index} o{p.orientation} {p.raw_w}x{p.raw_h}->"
-                    f"{c1 - c0}x{r1 - r0} kernel {t['kernel_ms']:.4f} "
-                    f"({_fmt(t['kernel_busy'])}) parent "
-                    f"{_fmt(t['parent_ms'])} "
+                    f"{c1 - c0}x{r1 - r0} prepared {t['kernel_ms']:.4f} "
+                    f"({_fmt(t['kernel_busy'])}) one-shot "
+                    f"{t['oneshot_ms']:.4f} ({_fmt(t['oneshot_busy'])}) "
+                    f"parent {_fmt(t['parent_ms'])} "
                     f"({_fmt(t['parent_busy'])}) F.interpolate "
                     f"{t['library_ms']:.4f} ({_fmt(t['library_busy'])}) plain "
                     f"{t['plain_ms']:.4f} ({_fmt(t['plain_busy'])}) bound "
                     f"{t['bound_ms']:.4f} ({nbytes} bytes)")
     check(worst == 0 and ndiff == 0, f"config 3 kernel vs plain max "
           f"|diff| {worst}, {ndiff} differing pixels (must be exact)")
+    check(nonce == 0, f"config 3: {nonce} pixels unlike the one-shot shell")
     check(nparent == 0, f"config 3: {nparent} pixels unlike the parent body")
     tot = _yardsticks(parts)
+    tot.update(host_pair(lambda: [f() for f in kernels],
+                         lambda: [f() for f in oneshots], len(kernels), 40))
     say(f"phase6 times (ms per launch; CUDA events, median of 20x10 "
-        f"launches in two rounds plain kernel parent F.interpolate and back; "
-        f"in brackets the profiler's device busy time; bound = tap "
-        f"footprint read once + region written at 3.35 TB/s) on {smi}: "
-        + " | ".join(rows) + f" | total kernel {tot['kernel_ms']:.4f} "
-        f"({_fmt(tot['kernel_busy'])}) parent {_fmt(tot['parent_ms'])} "
+        f"launches in two rounds plain prepared one-shot parent "
+        f"F.interpolate and back; in brackets the profiler's device busy "
+        f"time; bound = tap footprint read once + region written at 3.35 "
+        f"TB/s) on {smi}: " + " | ".join(rows)
+        + f" | total prepared {tot['kernel_ms']:.4f} "
+        f"({_fmt(tot['kernel_busy'])}) one-shot {tot['oneshot_ms']:.4f} "
+        f"({_fmt(tot['oneshot_busy'])}) parent {_fmt(tot['parent_ms'])} "
         f"({_fmt(tot['parent_busy'])}) F.interpolate "
         f"{tot['library_ms']:.4f} ({_fmt(tot['library_busy'])}) plain "
         f"{tot['plain_ms']:.4f} ({_fmt(tot['plain_busy'])}) bound "
-        f"{tot['bound_ms']:.4f} | kernel vs plain max |diff| {worst}, "
-        f"differing px {ndiff}, unlike parent {nparent}")
+        f"{tot['bound_ms']:.4f} | host us a launch (40 jobs of "
+        f"{len(kernels)} launches, no synchronise among them) prepared "
+        f"{tot['host_us']:.2f} one-shot {tot['oneshot_host_us']:.2f} | "
+        f"prepared vs plain max |diff| {worst}, differing px {ndiff}, "
+        f"unlike the one-shot shell {nonce}, unlike parent {nparent}")
     tot["worst"] = worst
     return tot
 
@@ -675,12 +721,11 @@ def phase9_config5(dev, smi, budget, shapes=CONFIG5, batch=BATCH5):
               f"cap {cap}")
         torch.cuda.reset_peak_memory_stats(dev)
         before = server.stats()
-        cuda_resize.launches = cuda_resize.batch_launches = 0
+        _zero_counts()
         t0 = time.perf_counter()
         outs = flush_round()
         wall = time.perf_counter() - t0
-        launches_main = cuda_resize.batch_launches
-        single = cuda_resize.launches
+        single, launches_main, _ = _prepared_counts("config 5 flush")
         after = server.stats()
         peak_mb = torch.cuda.max_memory_allocated(dev) / 1e6
         flushes = after["batches"] - before["batches"]
@@ -737,9 +782,12 @@ def phase9_config5(dev, smi, budget, shapes=CONFIG5, batch=BATCH5):
 
 def phase10_batch_times(dev, smi, plan, stacks, parent):
     """Kernel #2 at config 5's placements and batch size: CUDA events and
-    busy time beside the parent body, ``F.interpolate`` and the plain
-    version, the bound, and its store bit for bit against the plain
-    version's (and the parent's).  Returns the summed yardsticks."""
+    busy time of the prepared launch (as ``stitch_batch`` launches it)
+    beside the one-shot shell, the parent body, ``F.interpolate`` and the
+    plain version, the bound, the host microseconds a launch of each form
+    takes, and the prepared store bit for bit against the one-shot shell's
+    and the plain version's (and the parent's).  Returns the summed
+    yardsticks."""
     import torch
     from imagestitching_tpu_torch.core import geometry
     from imagestitching_tpu_torch.ops import cuda_resize
@@ -748,14 +796,20 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
     canvas = torch.zeros((batch, plan.canvas_h, plan.canvas_w, 3),
                          dtype=torch.uint8, device=dev)
     other = torch.zeros_like(canvas) if parent is not None else None
-    parts, rows, worst, ndiff, nparent = [], [], 0, 0, 0
+    parts, rows, worst, ndiff, nparent, nonce = [], [], 0, 0, 0, 0
+    kernels, oneshots = [], []
     for p in resampled(plan):
         src = torch.from_numpy(stacks[p.index]).to(dev)
         taps = taps_on(p, plan.filter, dev)
         r0, r1 = p.row_span
         c0, c1 = p.col_span
+        launch = cuda_resize.PlaceLaunch(src, p.orientation, *taps, canvas,
+                                         r0, c0)
 
-        def kernel(src=src, taps=taps, p=p, r0=r0, c0=c0):
+        def kernel(src=src, launch=launch):
+            launch(src, canvas)
+
+        def oneshot(src=src, taps=taps, p=p, r0=r0, c0=c0):
             cuda_resize.resize_place_batch(src, p.orientation, *taps, canvas,
                                            r0, c0)
 
@@ -773,8 +827,8 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
             *(x.cpu().numpy() for x in taps[:2]), disp_h,
             *(x.cpu().numpy() for x in taps[2:]), disp_w, 3)
             + (r1 - r0) * (c1 - c0) * 3)
-        t = time_four(kernel, plain, old, library, bound_ms(nbytes),
-                      device_reps=3, reps=5, inner=2)
+        t = time_versions(kernel, plain, old, library, bound_ms(nbytes),
+                          device_reps=3, oneshot=oneshot, reps=5, inner=2)
         del library
         kernel()
         got = canvas[:, r0:r1, c0:c1].clone()
@@ -782,6 +836,8 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
         d = (got.int() - canvas[:, r0:r1, c0:c1].int()).abs()
         worst = max(worst, int(d.max()))
         ndiff += int((d > 0).any(dim=3).sum())
+        oneshot()
+        nonce += int((canvas[:, r0:r1, c0:c1] != got).any(dim=3).sum())
         if old is not None:
             old()
             nparent += int((other[:, r0:r1, c0:c1] != got).any(dim=3).sum())
@@ -789,8 +845,12 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
         t["bound_ms"] = bound_ms(nbytes)
         t["bytes"] = nbytes
         parts.append(t)
+        kernels.append(kernel)
+        oneshots.append(oneshot)
         rows.append(f"#{p.index} {p.raw_w}x{p.raw_h}->{c1 - c0}x{r1 - r0} "
-                    f"kernel {t['kernel_ms']:.4f} ({_fmt(t['kernel_busy'])}) "
+                    f"prepared {t['kernel_ms']:.4f} "
+                    f"({_fmt(t['kernel_busy'])}) one-shot "
+                    f"{t['oneshot_ms']:.4f} ({_fmt(t['oneshot_busy'])}) "
                     f"parent {_fmt(t['parent_ms'])} "
                     f"({_fmt(t['parent_busy'])}) F.interpolate "
                     f"{t['library_ms']:.4f} ({_fmt(t['library_busy'])}) plain "
@@ -798,18 +858,26 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
                     f"{t['bound_ms']:.4f}")
     check(worst == 0 and ndiff == 0, f"config 5 batched kernel vs plain max "
           f"|diff| {worst}, {ndiff} differing pixels (must be exact)")
+    check(nonce == 0, f"config 5: {nonce} pixels unlike the one-shot shell")
     check(nparent == 0, f"config 5: {nparent} pixels unlike the parent body")
     tot = _yardsticks(parts)
+    tot.update(host_pair(lambda: [f() for f in kernels],
+                         lambda: [f() for f in oneshots], len(kernels), 10))
     say(f"phase10 batched times at B={batch} (ms per launch; CUDA events, "
-        f"median of 5x2 in two rounds plain kernel parent F.interpolate and "
-        f"back; in brackets the profiler's device busy time) on {smi}: "
-        + " | ".join(rows) + f" | total kernel {tot['kernel_ms']:.4f} "
-        f"({_fmt(tot['kernel_busy'])}) parent {_fmt(tot['parent_ms'])} "
+        f"median of 5x2 in two rounds plain prepared one-shot parent "
+        f"F.interpolate and back; in brackets the profiler's device busy "
+        f"time) on {smi}: "
+        + " | ".join(rows) + f" | total prepared {tot['kernel_ms']:.4f} "
+        f"({_fmt(tot['kernel_busy'])}) one-shot {tot['oneshot_ms']:.4f} "
+        f"({_fmt(tot['oneshot_busy'])}) parent {_fmt(tot['parent_ms'])} "
         f"({_fmt(tot['parent_busy'])}) F.interpolate "
         f"{tot['library_ms']:.4f} ({_fmt(tot['library_busy'])}) plain "
         f"{tot['plain_ms']:.4f} ({_fmt(tot['plain_busy'])}) bound "
-        f"{tot['bound_ms']:.4f} ({tot['bytes']} bytes) | kernel vs plain "
-        f"max |diff| {worst}, differing px {ndiff}, unlike parent {nparent}")
+        f"{tot['bound_ms']:.4f} ({tot['bytes']} bytes) | host us a launch "
+        f"(10 flushes of {len(kernels)} launches, no synchronise among them) "
+        f"prepared {tot['host_us']:.2f} one-shot {tot['oneshot_host_us']:.2f}"
+        f" | prepared vs plain max |diff| {worst}, differing px {ndiff}, "
+        f"unlike the one-shot shell {nonce}, unlike parent {nparent}")
     tot["worst"] = worst
     return tot
 
@@ -973,16 +1041,14 @@ def phase13_config4(dev, smi, shapes=CONFIG4, big=CONFIG4_24MP):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        cuda_resize.launches = cuda_resize.batch_launches = 0
-        cuda_resize.window_launches = 0
+        _zero_counts()
         t0 = time.perf_counter()
         out, m = itt.stitch(items, options=opts, config=RuntimeConfig(
             device=str(dev), budget=budget, overlap="never"),
             return_metrics=True)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev) - base
-        launched = (cuda_resize.launches, cuda_resize.batch_launches,
-                    cuda_resize.window_launches)
+        launched = _prepared_counts(f"config 4 {strategy}")
         check(m.strategy == strategy, f"ran {m.strategy}, expected "
               f"{strategy}")
         if strategy == "banded":
@@ -1102,13 +1168,14 @@ def phase15_window_times(dev, smi, plan, opts, items, parent,
                          band_rows=256):
     """Kernel #3 over every chunk of config 4's banded job (crops and the
     placements' taps already on the card, launched as the banded rung
-    launches it: one ``WindowLauncher`` per placement, per chunk its first
-    tap row and crop start): CUDA events and busy time beside the parent
+    launches it: one prepared ``WindowLauncher`` per placement, per chunk
+    its first tap row and crop start): CUDA events and busy time beside the
+    one-shot shell (``resize_place_window`` on the same rows), the parent
     body (rebased taps per chunk), ``F.interpolate`` over the five whole
-    placements and the plain version, the bound, the host time per launch,
-    and the kernel's chunks bit for bit against the plain version's; then a
-    streamed and a banded job under torch.profiler.  Returns the summed
-    yardsticks."""
+    placements and the plain version, the bound, the host time per launch
+    of both forms, and the prepared chunks bit for bit against the one-shot
+    shell's and the plain version's; then a streamed and a banded job under
+    torch.profiler.  Returns the summed yardsticks."""
     import torch
     import imagestitching_tpu_torch as itt
     from imagestitching_tpu_torch.core import geometry
@@ -1145,6 +1212,11 @@ def phase15_window_times(dev, smi, plan, opts, items, parent,
         for _, launch, crop, a, s_lo, valid, _, _ in chunks:
             launch(crop, a, s_lo, valid)
 
+    def oneshot(out=regions):
+        for idx, _, crop, a, s_lo, valid, taps, _ in chunks:
+            cuda_resize.resize_place_window(crop, *taps, out[idx], a, s_lo,
+                                            valid)
+
     def plain():
         for idx, _, crop, a, s_lo, valid, taps, _ in chunks:
             regions[idx][:valid] = cuda_resize.resize_place_window_ref(
@@ -1164,25 +1236,23 @@ def phase15_window_times(dev, smi, plan, opts, items, parent,
             for f in calls:
                 f()
 
-    t = time_four(kernel, plain, old, library, bound_ms(nbytes),
-                  device_reps=3, reps=5, inner=1)
+    t = time_versions(kernel, plain, old, library, bound_ms(nbytes),
+                      device_reps=3, oneshot=oneshot, reps=5, inner=1)
     # host time of a launch: 45 enqueues with the card ahead of the host
-    torch.cuda.synchronize()
-    host = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        kernel()
-        host.append((time.perf_counter() - t0) / len(chunks) * 1e6)
-        torch.cuda.synchronize()
-    host_us = statistics.median(host)
-    worst = ndiff = nparent = 0
+    t.update(host_pair(kernel, oneshot, len(chunks), 5))
+    once = {i: torch.zeros_like(r) for i, r in regions.items()}
+    worst = ndiff = nparent = nonce = 0
     for idx, launch, crop, a, s_lo, valid, taps, _ in chunks:
         launch(crop, a, s_lo, valid)
+        cuda_resize.resize_place_window(crop, *taps, once[idx], a, s_lo,
+                                        valid)
         want = cuda_resize.resize_place_window_ref(crop, *taps, a, s_lo,
                                                    valid)
         d = (regions[idx][:valid].int() - want.int()).abs()
         worst = max(worst, int(d.max()))
         ndiff += int((d > 0).any(dim=2).sum())
+        nonce += int((once[idx][:valid] != regions[idx][:valid])
+                     .any(dim=2).sum())
     if old is not None:
         for (idx, launch, crop, a, s_lo, valid, _, _), f in zip(chunks,
                                                                 calls):
@@ -1192,26 +1262,29 @@ def phase15_window_times(dev, smi, plan, opts, items, parent,
                            .any(dim=2).sum())
     check(worst == 0 and ndiff == 0, f"config 4 windowed kernel vs plain "
           f"max |diff| {worst}, {ndiff} differing pixels (must be exact)")
+    check(nonce == 0, f"config 4: {nonce} pixels unlike the one-shot shell")
     check(nparent == 0, f"config 4: {nparent} pixels unlike the parent body")
     t["bound_ms"] = bound_ms(nbytes)
     t["bytes"] = nbytes
-    t["host_us"] = host_us
     t["worst"] = worst
     crop0 = chunks[0][2]
     say(f"phase15 windowed times over config 4's {len(chunks)} chunks of "
         f"{band_rows} rows (crop {tuple(crop0.shape)} -> region "
         f"{band_rows}x{regions[chunks[0][0]].shape[1]}x3; ms per job, CUDA "
-        f"events median of 5 in two rounds plain kernel parent "
+        f"events median of 5 in two rounds plain prepared one-shot parent "
         f"F.interpolate and back; in brackets the profiler's device busy "
-        f"time) on {smi}: kernel {t['kernel_ms']:.4f} "
-        f"({_fmt(t['kernel_busy'])}) parent {_fmt(t['parent_ms'])} "
+        f"time) on {smi}: prepared {t['kernel_ms']:.4f} "
+        f"({_fmt(t['kernel_busy'])}) one-shot {t['oneshot_ms']:.4f} "
+        f"({_fmt(t['oneshot_busy'])}) parent {_fmt(t['parent_ms'])} "
         f"({_fmt(t['parent_busy'])}) F.interpolate of the 5 whole "
         f"placements {t['library_ms']:.4f} ({_fmt(t['library_busy'])}) plain "
         f"{t['plain_ms']:.4f} ({_fmt(t['plain_busy'])}) bound "
-        f"{t['bound_ms']:.4f} ({nbytes} bytes) | host time per launch "
-        f"{host_us:.2f} us | max |diff| {worst}, differing px {ndiff}, "
-        f"unlike parent {nparent}")
-    del chunks, regions, other, libs
+        f"{t['bound_ms']:.4f} ({nbytes} bytes) | host us a launch (5 jobs "
+        f"of {len(chunks)} launches, no synchronise among them) prepared "
+        f"{t['host_us']:.2f} one-shot {t['oneshot_host_us']:.2f} | prepared "
+        f"vs plain max |diff| {worst}, differing px {ndiff}, unlike the "
+        f"one-shot shell {nonce}, unlike parent {nparent}")
+    del chunks, regions, other, libs, once
 
     canvas_bytes = 3 * plan.canvas_w * plan.canvas_h
     for strategy, budget in (
@@ -1414,7 +1487,18 @@ def _zero_counts():
     from imagestitching_tpu_torch.ops import cuda_resize
 
     cuda_resize.launches = cuda_resize.batch_launches = 0
-    cuda_resize.window_launches = 0
+    cuda_resize.window_launches = cuda_resize.oneshot_launches = 0
+
+
+def _prepared_counts(where):
+    """``_launch_counts()`` of a main-path run, which must have launched
+    through the prepared forms only: no one-shot shell since the counts
+    were set to 0."""
+    from imagestitching_tpu_torch.ops import cuda_resize
+
+    check(cuda_resize.oneshot_launches == 0, f"{where}: "
+          f"{cuda_resize.oneshot_launches} launches through a one-shot shell")
+    return _launch_counts()
 
 
 def _times(m):
@@ -1474,7 +1558,7 @@ def phase16_overlapped(dev, smi, td, shapes=CONFIG4):
     t0 = time.perf_counter()
     out, m = itt.stitch(files, options=opts, return_metrics=True)
     cold = time.perf_counter() - t0
-    launched = _launch_counts()
+    launched = _prepared_counts("overlapped")
     check(m.strategy == "overlapped", f"9 JPEG files ran {m.strategy}")
     check(launched == (len(res), 0, 0), f"overlapped launches {launched}, "
           f"expected ({len(res)}, 0, 0)")
@@ -1521,7 +1605,7 @@ def phase16_overlapped(dev, smi, td, shapes=CONFIG4):
     outb, mb_ = itt.stitch(files, options=opts, config=RuntimeConfig(
         device=str(dev), budget=budget), return_metrics=True)
     wall_b = time.perf_counter() - t0
-    launched_b = _launch_counts()
+    launched_b = _prepared_counts("overlapped/banded")
     check(mb_.strategy == "overlapped/banded", f"banded budget ran "
           f"{mb_.strategy}")
     check(launched_b == (0, 0, chunks), f"overlapped/banded launches "
@@ -1819,7 +1903,7 @@ def phase19_merge(dev, smi, screens=SCREENS):
     t0 = time.perf_counter()
     out, m = itt.stitch(shots, options=opts, config=cfg, return_metrics=True)
     wall = time.perf_counter() - t0
-    launched = _launch_counts()
+    launched = _prepared_counts("merge")
     pre = [shots[0]] + [s[shared:] for s in shots[1:]]
     want = itt.stitch(pre, options=StitchOptions(direction="vertical",
                                                  mode="min", gap=0),
@@ -1884,7 +1968,7 @@ def phase20_grid(dev, smi, shapes=CONFIG4):
             out, m = itt.stitch_grid(items, cols=3, options=opts, config=cfg,
                                      valign=valign, return_metrics=True)
             wall = time.perf_counter() - t0
-            launched = _launch_counts()
+            launched = _prepared_counts(f"grid {valign}")
             expect = [len(resampled(p)) for p in gplan.col_plans]
             check(per_col == expect and launched == (sum(expect), 0, 0),
                   f"grid {valign}: launches per column {per_col} "
@@ -1977,9 +2061,9 @@ def phase21_preview(dev, smi, items, box_w=750):
         out[:] = cuda_resize.resize_place_ref(canvas, 1, *taps)
 
     nbytes = footprint_bytes(ri0, rw, h, ci0, cw, w, c) + ph * pw * c
-    t = time_four(kernel, plain, None, interp_call(canvas, 1, ph, pw,
-                                                   "bilinear"),
-                  bound_ms(nbytes), reps=10, inner=5, device_reps=10)
+    t = time_versions(kernel, plain, None, interp_call(canvas, 1, ph, pw,
+                                                       "bilinear"),
+                      bound_ms(nbytes), reps=10, inner=5, device_reps=10)
     t["bound_ms"] = bound_ms(nbytes)
     t["worst"] = d
     say(f"phase21 make_preview(box_w={box_w}) of the config4-EXIF canvas on "
@@ -2050,7 +2134,7 @@ def phase22_space_sharded(dev, smi, plan, opts, imgs, items, ref):
         out, m = itt.stitch(items, options=opts, config=cfg,
                             return_metrics=True)
         wall = time.perf_counter() - t0
-        launched = _launch_counts()
+        launched = _prepared_counts("space-sharded")
         peak = torch.cuda.max_memory_allocated(dev) - base
         check(m.strategy == "space-sharded", f"(1, 4) mesh ran {m.strategy}")
         check(launched == (0, 0, len(pairs)), f"space-sharded launches "
@@ -2148,9 +2232,9 @@ def phase22_space_sharded(dev, smi, plan, opts, imgs, items, ref):
     i0, w = wp.ri0[a:a + valid] - s_lo, wp.rw[a:a + valid]
     nbytes = (footprint_bytes(i0, w, wp.crop_rows, wp.ci0, wp.cw, wp.disp_w,
                               3) + valid * wp.n_cols * 3)
-    t = time_four(kernel, plain, None, interp_call(crop, 1, valid, wp.n_cols,
-                                                    plan.filter),
-                  bound_ms(nbytes), reps=10, inner=5, device_reps=10)
+    t = time_versions(kernel, plain, None,
+                      interp_call(crop, 1, valid, wp.n_cols, plan.filter),
+                      bound_ms(nbytes), reps=10, inner=5, device_reps=10)
     t["bound_ms"] = bound_ms(nbytes)
     t["worst"] = d
     say(f"phase22 config4-EXIF space-sharded on a (1, {n}) mesh of {dev} x "
@@ -2204,7 +2288,7 @@ def phase23_jobs_mesh(dev, smi, plan, stacks, items3, opts3):
     t0 = time.perf_counter()
     got = bs(stacks)
     wall4 = time.perf_counter() - t0
-    launched = _launch_counts()
+    launched = _prepared_counts("jobs mesh")
     check(launched == (0, 4 * n_res, 0), f"jobs mesh launches {launched}, "
           f"expected (0, {4 * n_res}, 0)")
     check(np.array_equal(got, single), "jobs mesh batch differs from the "
@@ -2388,7 +2472,7 @@ def phase24_staged(dev, smi, cases, parent=None):
             library = rotate(lambda x: F.interpolate(
                 x, size=(n_rows, n_cols), mode="bilinear",
                 align_corners=False), xs)
-        t[key] = time_four(
+        t[key] = time_versions(
             rotate(launch, bands),
             lambda b=bands[0]: slot.copy_(
                 staged_resize.resize_place_staged_ref(b, *taps)),
@@ -2407,9 +2491,9 @@ def phase24_staged(dev, smi, cases, parent=None):
         # walking 4 or 5 tiles, so that the ring overlaps
         walk = staged_resize.StagedLaunch(bands[0], *taps, slot, 0, 0,
                                           schedule=sched, ctas=sms)
-        one_an_sm = time_four(rotate(walk, bands), None, None, None,
-                              bound_ms(nbytes), reps=10, inner=5,
-                              device_reps=10)
+        one_an_sm = time_versions(rotate(walk, bands), None, None, None,
+                                  bound_ms(nbytes), reps=10, inner=5,
+                                  device_reps=10)
         t[key].update(one_an_sm_ms=one_an_sm["kernel_ms"],
                       one_an_sm_busy=one_an_sm["kernel_busy"])
         t[key].update(bound_ms=bound_ms(nbytes), bytes=nbytes, copies=n,
@@ -2418,7 +2502,7 @@ def phase24_staged(dev, smi, cases, parent=None):
         del bands, library, launch, walk
     check(nparent == 0, f"#4: {nparent} pixels unlike the previous body")
     raws = [src.clone() for _ in range(t["uint8"]["copies"])]
-    t1 = time_four(rotate(lambda s_: cuda_resize.resize_place(
+    t1 = time_versions(rotate(lambda s_: cuda_resize.resize_place(
         s_, 1, *taps, slot, 0, 0), raws), None, None, None,
         t["uint8"]["bound_ms"], reps=10, inner=5, device_reps=10)
     del raws
@@ -2473,6 +2557,39 @@ def phase24_staged(dev, smi, cases, parent=None):
            f"{u8['parent_host_us']:.2f} bf16 {bf['parent_host_us']:.2f}"))
     return {"launches": launched[3], "t": t, "kernel1": t1,
             "profiler": rec}
+
+
+def phase25_fresh(smi):
+    """Kernels #1-#3 at their main-path sites (config 3, config 5 at B =
+    64, config 4-EXIF's 45 banded chunks), prepared and one-shot, in a
+    fresh process: ``python -m imagestitching_tpu_torch.tools.
+    profile_resize``, which must exit 0 with parity.  Late in this long
+    process the profiler drops GPU records (#2's busy time read "not
+    measured" there); a fresh process records every launch.  Returns the
+    tool's record."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "imagestitching_tpu_torch.tools."
+         "profile_resize", "--reps", "10", "--rounds", "3"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"profile_resize exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(rec["ok"], f"profile_resize parity {rec['parity']}")
+    rows = []
+    for key, t in rec["sites"].items():
+        pr, os_ = t["prepared"], t["oneshot"]
+        rows.append(f"{key} ({t['launches']} launches): prepared "
+                    f"{pr['ms']:.4f} ({_fmt(pr['busy_ms'])}, "
+                    f"{pr['host_us']:.2f} us a launch) one-shot "
+                    f"{os_['ms']:.4f} ({_fmt(os_['busy_ms'])}, "
+                    f"{os_['host_us']:.2f} us) bound {t['bound_ms']:.4f}")
+    say(f"phase25 python -m imagestitching_tpu_torch.tools.profile_resize "
+        f"--reps 10 --rounds 3: exit 0 in {sub_s:.1f} s (a fresh process), "
+        f"parity {rec['parity']} | ms a job by CUDA events (busy; host) "
+        f"on {smi}: " + " | ".join(rows))
+    return rec
 
 
 def main() -> None:
@@ -2659,7 +2776,7 @@ def main() -> None:
     check(len(copies) == 4 and per_job == 5,
           f"config 3 plan: {len(copies)} copies, {per_job} resampled")
     walls, deltas, phases, out = [], [], [], None
-    cuda_resize.launches = cuda_resize.batch_launches = 0
+    _zero_counts()
     for _ in range(3):
         before = cuda_resize.launches
         t0 = time.perf_counter()
@@ -2670,7 +2787,7 @@ def main() -> None:
         phases.append(f"{m.prepare_s:.4f}/{m.compute_s:.4f}/"
                       f"{m.readback_s:.4f}")
         check(m.strategy == "resident", f"strategy {m.strategy!r}")
-    launches_main = cuda_resize.launches
+    launches_main = _prepared_counts("config 3")[0]
     check(deltas == [per_job] * 3, f"kernel launches per job {deltas}, "
           f"expected {per_job}")
     check(cuda_resize.batch_launches == 0, "the single-job path launched "
@@ -2770,6 +2887,10 @@ def main() -> None:
     # ---- phase 24: kernel #4 and its profiler
     r24 = phase24_staged(dev, smi, cases, parent_staged)
     marks.append(("24", time.perf_counter()))
+
+    # ---- phase 25: #1-#3 prepared and one-shot in a fresh process
+    r25 = phase25_fresh(smi)["sites"]
+    marks.append(("25", time.perf_counter()))
     say("seconds by phase (host clock): " + " ".join(
         f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in
         enumerate(marks[1:])) + f" | total {marks[-1][1] - marks[0][1]:.1f}")
@@ -2788,6 +2909,18 @@ def main() -> None:
                 "parent_ms": r(t["parent_ms"]),
                 "parent_busy_ms": r(t["parent_busy"]), **by_path}
 
+    def prepared(t, site):
+        """#1-#3's one-shot shell beside the prepared launch in the same
+        phase, host us a launch of both, and the fresh process's numbers
+        at the site (phase 25)."""
+        f = r25[site]
+        return {"oneshot_ms": r(t["oneshot_ms"]),
+                "oneshot_busy_ms": r(t["oneshot_busy"]),
+                "host_us": r(t["host_us"]),
+                "oneshot_host_us": r(t["oneshot_host_us"]),
+                "fresh": {form: {k: r(v) for k, v in f[form].items()}
+                          for form in ("prepared", "oneshot")}}
+
     # "launches": the count on the kernel's first path (phase 4, 9 or 13's
     # banded run); "launches_overlapped": on the overlapped scheduler's run
     # of phase 16 (its resident plan for #1, its banded budget for #3);
@@ -2798,10 +2931,14 @@ def main() -> None:
     # "launches_space_sharded": #3 on phase 22's space-sharded job, and
     # "space_sharded" its yardsticks at one band window; #4: "launches" on
     # phase 24's profiler run, its yardsticks with uint8 bands, "bf16"
-    # with bf16 bands, "kernel1" #1 on the same slot
+    # with bf16 bands, "kernel1" #1 on the same slot; #1-#3: "ms" and
+    # "busy_ms" are the prepared launch's, "oneshot_ms" / "oneshot_busy_ms"
+    # the one-shot shell's in the same phase, "host_us" /
+    # "oneshot_host_us" host us a launch, "fresh" phase 25's numbers
     record = {"kernels": [
         entry("resize_place", REPLACES, launches_main,
               max(worst_all, t6["worst"], t21["worst"]), t6,
+              **prepared(t6, "config3"),
               launches_overlapped=launches_ov, launches_merge=launches_merge,
               launches_grid=launches_grid, launches_preview=launches_preview,
               preview={"ms": r(t21["kernel_ms"]),
@@ -2810,10 +2947,11 @@ def main() -> None:
                        "library_ms": r(t21["library_ms"]),
                        "bound_ms": r(t21["bound_ms"])}),
         entry("resize_place_batch", REPLACES_BATCH, launches5,
-              max(worst8, t10["worst"]), t10,
+              max(worst8, t10["worst"]), t10, **prepared(t10, "config5"),
               launches_jobs_mesh=launches_jobs_mesh),
         entry("resize_place_window", REPLACES_WINDOW, launches_w,
               max(worst12, t15["worst"], t22["worst"]), t15,
+              **prepared(t15, "config4_banded"),
               launches_overlapped=launches_wov,
               launches_space_sharded=launches_sharded,
               space_sharded={"ms": r(t22["kernel_ms"]),

@@ -71,10 +71,46 @@
 // The windowed entry takes the placement's row taps once: the caller
 // passes the chunk's slice of them and row_shift, the chunk's crop start,
 // which the body subtracts from every row tap start.
+//
+// Each form has a prepared launch: resize_place_prepare checks a launch,
+// maps its orientation and picks its tile once into a PlaceArgs, and
+// resize_place_run (#1, #2: the source and canvas pointers) or
+// resize_place_window_run (#3: the crop pointer and the chunk's rows)
+// launches it with one call's worth of host work.  The SM count and the
+// shared-memory attribute are set up once per device.  The one-shot
+// entries are prepare + run in one call.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <mutex>
+
+// One launch of #1, #2 or #3: the caller fills the fields above "filled
+// by resize_place_prepare", and prepare derives the rest from them.  A run
+// passes only what changes from call to call.
+struct PlaceArgs {
+  const int32_t* ri0;       // (tap_rows,) row tap starts
+  const float* rw;          // (tap_rows, k_rows)
+  const int32_t* ci0;       // (n_cols,) col tap starts
+  const float* cw;          // (n_cols, k_cols)
+  uint8_t* canvas;          // #3: the region; #1, #2: null (given per run)
+  int64_t src_h, src_w;     // raw source dims (#3: the crop's rows, width)
+  int64_t src_stride;       // bytes between jobs' sources (batch > 1)
+  int64_t canvas_h, canvas_w;
+  int64_t canvas_stride;    // bytes between jobs' canvases (batch > 1)
+  int64_t r0, c0;           // where the region lands in the canvas
+  int32_t channels, orientation, batch;
+  int32_t n_rows;           // rows a run writes at most, the tile's basis
+  int32_t tap_rows;         // rows of the row taps (#1, #2: n_rows)
+  int32_t k_rows, n_cols, k_cols;
+  // filled by resize_place_prepare
+  int64_t base, sy, sx;     // oriented (y, x) -> raw base + y*sy + x*sx
+  int32_t m_h, m_w;         // oriented dims
+  int32_t tile_r, tile_c, tiles_c;
+  int32_t smem_bytes;       // dynamic shared memory of a launch
+  const void* kernel;       // resize_place_kernel<channels>; null: empty
+};
 
 namespace {
 
@@ -562,77 +598,54 @@ bool orientation_map(int orientation, int64_t H, int64_t W, int64_t* base,
   }
 }
 
-template <int C>
-cudaError_t start(const Launch& g, int batch, cudaStream_t s) {
-  // above the 48 KB default, on the current device
-  const cudaError_t attr = cudaFuncSetAttribute(
-      resize_place_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemCap);
-  if (attr != cudaSuccess) return attr;
-  const int tiles = ((g.n_rows + g.tile_r - 1) / g.tile_r) * g.tiles_c;
-  resize_place_kernel<C><<<dim3(tiles, 1, batch), kThreads, g.smem_bytes,
-                           s>>>(g);
-  return cudaGetLastError();
-}
+constexpr int kMaxDevices = 64;
+std::mutex g_mu;
+int g_sms[kMaxDevices];        // SM count per device, 0 until read
+unsigned g_raised[kMaxDevices];  // bit C: the smem attribute of <C> raised
 
-// The one launcher behind the three C entries.  Strides are in bytes (uint8
-// elements) between consecutive jobs; with batch == 1 they are not read.
-int launch(const void* src, int batch, int64_t src_stride, int64_t src_h,
-           int64_t src_w, int channels, int orientation, const void* ri0,
-           const void* rw, int row_shift, int n_rows, int k_rows,
-           const void* ci0, const void* cw, int n_cols, int k_cols,
-           void* canvas, int64_t canvas_stride, int64_t canvas_h,
-           int64_t canvas_w, int64_t r0, int64_t c0, void* stream) {
+// The kernel a prepared launch runs, with its arguments for one call: the
+// source and canvas of job 0, and the rows [row_start, row_start + n_rows)
+// of the row taps with row_shift subtracted from their starts.
+cudaError_t run(const PlaceArgs& a, const void* src, void* canvas,
+                int row_start, int row_shift, int n_rows,
+                cudaStream_t stream) {
   Launch g;
-  if (!orientation_map(orientation, src_h, src_w, &g.base, &g.sy, &g.sx) ||
-      (channels != 1 && channels != 3) || batch < 1 || batch > 65535 ||
-      k_rows < 1 || k_cols < 1 || r0 < 0 || c0 < 0 || src_h < 1 ||
-      src_w < 1 || src_h > INT_MAX || src_w > INT_MAX ||
-      r0 + n_rows > canvas_h || c0 + n_cols > canvas_w)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (batch > 1 && (src_stride < src_h * src_w * channels ||
-                    canvas_stride < canvas_h * canvas_w * channels))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows <= 0 || n_cols <= 0) return static_cast<int>(cudaSuccess);
-  const bool transposed = orientation >= 5;
   g.src = static_cast<const uint8_t*>(src);
-  g.src_stride = src_stride;
-  g.src_h = src_h;
-  g.src_w = src_w;
-  g.orientation = orientation < 1 ? 1 : orientation;
-  g.m_h = static_cast<int>(transposed ? src_w : src_h);
-  g.m_w = static_cast<int>(transposed ? src_h : src_w);
-  g.ri0 = static_cast<const int32_t*>(ri0);
-  g.rw = static_cast<const float*>(rw);
+  g.src_stride = a.src_stride;
+  g.src_h = a.src_h;
+  g.src_w = a.src_w;
+  g.orientation = a.orientation < 1 ? 1 : a.orientation;
+  g.base = a.base;
+  g.sy = a.sy;
+  g.sx = a.sx;
+  g.m_h = a.m_h;
+  g.m_w = a.m_w;
+  g.ri0 = a.ri0 + row_start;
+  g.rw = a.rw + static_cast<int64_t>(row_start) * a.k_rows;
   g.n_rows = n_rows;
-  g.k_rows = k_rows;
+  g.k_rows = a.k_rows;
   g.row_shift = row_shift;
-  g.ci0 = static_cast<const int32_t*>(ci0);
-  g.cw = static_cast<const float*>(cw);
-  g.n_cols = n_cols;
-  g.k_cols = k_cols;
+  g.ci0 = a.ci0;
+  g.cw = a.cw;
+  g.n_cols = a.n_cols;
+  g.k_cols = a.k_cols;
   g.canvas = static_cast<uint8_t*>(canvas);
-  g.canvas_stride = canvas_stride;
-  g.canvas_w = canvas_w;
-  g.r0 = r0;
-  g.c0 = c0;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int64_t smem;
-  pick_tile(n_rows, k_rows, g.m_h, n_cols, k_cols, g.m_w, channels,
-            transposed, batch, sms, &g.tile_r, &g.tile_c, &smem);
-  g.tiles_c = (n_cols + g.tile_c - 1) / g.tile_c;
-  g.smem_bytes = static_cast<int>(smem);
-  if (static_cast<int64_t>((n_rows + g.tile_r - 1) / g.tile_r) * g.tiles_c >
-      INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = channels == 3 ? start<3>(g, batch, s) : start<1>(g, batch, s);
-  return static_cast<int>(err);
+  g.canvas_stride = a.canvas_stride;
+  g.canvas_w = a.canvas_w;
+  g.r0 = a.r0;
+  g.c0 = a.c0;
+  g.tile_r = a.tile_r;
+  g.tile_c = a.tile_c;
+  g.tiles_c = a.tiles_c;
+  g.smem_bytes = a.smem_bytes;
+  // fewer rows than prepared: fewer row tiles of the prepared tile
+  const int tiles = ((n_rows + a.tile_r - 1) / a.tile_r) * a.tiles_c;
+  void* args[1] = {&g};
+  const cudaError_t err = cudaLaunchKernel(
+      a.kernel, dim3(tiles, 1, a.batch), dim3(kThreads), args,
+      static_cast<size_t>(a.smem_bytes), stream);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
@@ -642,25 +655,117 @@ extern "C" {
 // The entries launch on `stream` and return the launch's cudaError_t (0 =
 // the launch was accepted).  They launch on the calling thread's current
 // device, which the caller sets to the device that holds the tensors and
-// `stream`; the current device is left as it was.  They do not synchronise
-// and allocate nothing.
+// `stream` (for a prepared launch, the device it was prepared on); the
+// current device is left as it was.  They do not synchronise and allocate
+// nothing.  All arrays are contiguous uint8 HWC.
 
-// All entries take contiguous uint8 HWC arrays.
+// sizeof(PlaceArgs), for the host's mirror of it
+int resize_place_args_size() { return static_cast<int>(sizeof(PlaceArgs)); }
+
+// Check a launch and fill its derived fields, on the calling thread's
+// current device: the orientation map, the tile that pick_tile gives for
+// n_rows rows of `batch` jobs on this device's SMs, the grid's columns and
+// the dynamic shared memory.  The SM count is read, and the kernel's
+// shared-memory attribute raised, once per device (and channel count).
+// Returns a cudaError_t (0 = ready to run).  Launches nothing.
 //
-// One job: src is (src_h, src_w, channels), canvas (canvas_h, canvas_w,
-// channels).
-int resize_place_launch(const void* src, int64_t src_h,
-                        int64_t src_w, int channels, int orientation,
-                        const void* ri0, const void* rw, int n_rows,
-                        int k_rows, const void* ci0, const void* cw,
-                        int n_cols, int k_cols, void* canvas,
-                        int64_t canvas_h, int64_t canvas_w, int64_t r0,
-                        int64_t c0, void* stream) {
-  return launch(src, 1, 0, src_h, src_w, channels, orientation, ri0, rw, 0,
-                n_rows, k_rows, ci0, cw, n_cols, k_cols, canvas, 0, canvas_h,
-                canvas_w, r0, c0, stream);
+// The source is (src_h, src_w, channels), the canvas (canvas_h, canvas_w,
+// channels); with batch > 1 job b's lie src_stride and canvas_stride bytes
+// after job b-1's.  The n_rows x n_cols region lands at (r0, c0).
+int resize_place_prepare(PlaceArgs* a) {
+  a->kernel = nullptr;
+  if (!orientation_map(a->orientation, a->src_h, a->src_w, &a->base, &a->sy,
+                       &a->sx) ||
+      (a->channels != 1 && a->channels != 3) || a->batch < 1 ||
+      a->batch > 65535 || a->k_rows < 1 || a->k_cols < 1 || a->r0 < 0 ||
+      a->c0 < 0 || a->src_h < 1 || a->src_w < 1 || a->src_h > INT_MAX ||
+      a->src_w > INT_MAX || a->n_rows < 0 || a->n_cols < 0 ||
+      a->tap_rows < 0 || a->r0 + a->n_rows > a->canvas_h ||
+      a->c0 + a->n_cols > a->canvas_w)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a->batch > 1 &&
+      (a->src_stride < a->src_h * a->src_w * a->channels ||
+       a->canvas_stride < a->canvas_h * a->canvas_w * a->channels))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool transposed = a->orientation >= 5;
+  a->m_h = static_cast<int32_t>(transposed ? a->src_w : a->src_h);
+  a->m_w = static_cast<int32_t>(transposed ? a->src_h : a->src_w);
+  if (a->n_rows == 0 || a->n_cols == 0) return static_cast<int>(cudaSuccess);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  const void* kernel =
+      a->channels == 3 ? reinterpret_cast<const void*>(resize_place_kernel<3>)
+                       : reinterpret_cast<const void*>(resize_place_kernel<1>);
+  int sms = 0;
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    if (g_sms[device] == 0) {
+      err = cudaDeviceGetAttribute(&g_sms[device],
+                                   cudaDevAttrMultiProcessorCount, device);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    sms = g_sms[device];
+    // above the 48 KB default, once per device and instantiation
+    if (!(g_raised[device] & (1u << a->channels))) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmemCap);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      g_raised[device] |= 1u << a->channels;
+    }
+  }
+  int tile_r = 0, tile_c = 0;
+  int64_t smem = 0;
+  pick_tile(a->n_rows, a->k_rows, a->m_h, a->n_cols, a->k_cols, a->m_w,
+            a->channels, transposed, a->batch, sms, &tile_r, &tile_c, &smem);
+  const int64_t tiles_c = (a->n_cols + tile_c - 1) / tile_c;
+  if ((a->n_rows + tile_r - 1) / tile_r * tiles_c > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a->tile_r = tile_r;
+  a->tile_c = tile_c;
+  a->tiles_c = static_cast<int32_t>(tiles_c);
+  a->smem_bytes = static_cast<int32_t>(smem);
+  a->kernel = kernel;
+  return static_cast<int>(cudaSuccess);
 }
 
+// #1 and #2 prepared: one launch over the `batch` jobs whose sources start
+// at `src` and canvases at `canvas`, of the shapes prepared.
+int resize_place_run(const PlaceArgs* a, const void* src, void* canvas,
+                     void* stream) {
+  if (a->kernel == nullptr)
+    return static_cast<int>(a->n_rows == 0 || a->n_cols == 0
+                                ? cudaSuccess
+                                : cudaErrorInvalidValue);
+  if (src == nullptr || canvas == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run(*a, src, canvas, 0, 0, a->n_rows,
+                              static_cast<cudaStream_t>(stream)));
+}
+
+// #3 prepared: rows [row_start, row_start + n_rows) of the placement from
+// `crop` (the oriented source row window of the shape prepared, whose first
+// row is row `row_shift` of the oriented source) into rows [0, n_rows) of
+// the prepared region, with the tile prepared for its rows.
+int resize_place_window_run(const PlaceArgs* a, const void* crop,
+                            int row_start, int row_shift, int n_rows,
+                            void* stream) {
+  if (row_start < 0 || n_rows < 0 || n_rows > a->n_rows ||
+      row_start > a->tap_rows - n_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows == 0 || a->n_cols == 0) return static_cast<int>(cudaSuccess);
+  if (a->kernel == nullptr || crop == nullptr || a->canvas == nullptr ||
+      a->batch != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run(*a, crop, a->canvas, row_start, row_shift,
+                              n_rows, static_cast<cudaStream_t>(stream)));
+}
+
+// One-shot shells: prepare and run in one call.
+//
 // `batch` jobs (1 <= batch <= 65535, the grid's z limit) sharing one
 // placement's taps: job b's source starts src_stride bytes after job b-1's,
 // its canvas canvas_stride bytes after.  One launch for the whole batch.
@@ -673,9 +778,44 @@ int resize_place_batch_launch(const void* src, int batch, int64_t src_stride,
                               int64_t canvas_stride, int64_t canvas_h,
                               int64_t canvas_w, int64_t r0, int64_t c0,
                               void* stream) {
-  return launch(src, batch, src_stride, src_h, src_w, channels, orientation,
-                ri0, rw, 0, n_rows, k_rows, ci0, cw, n_cols, k_cols, canvas,
-                canvas_stride, canvas_h, canvas_w, r0, c0, stream);
+  PlaceArgs a = {};
+  a.ri0 = static_cast<const int32_t*>(ri0);
+  a.rw = static_cast<const float*>(rw);
+  a.ci0 = static_cast<const int32_t*>(ci0);
+  a.cw = static_cast<const float*>(cw);
+  a.src_h = src_h;
+  a.src_w = src_w;
+  a.src_stride = src_stride;
+  a.canvas_h = canvas_h;
+  a.canvas_w = canvas_w;
+  a.canvas_stride = canvas_stride;
+  a.r0 = r0;
+  a.c0 = c0;
+  a.channels = channels;
+  a.orientation = orientation;
+  a.batch = batch;
+  a.n_rows = n_rows;
+  a.tap_rows = n_rows;
+  a.k_rows = k_rows;
+  a.n_cols = n_cols;
+  a.k_cols = k_cols;
+  const int err = resize_place_prepare(&a);
+  return err != 0 ? err : resize_place_run(&a, src, canvas, stream);
+}
+
+// One job: src is (src_h, src_w, channels), canvas (canvas_h, canvas_w,
+// channels).
+int resize_place_launch(const void* src, int64_t src_h,
+                        int64_t src_w, int channels, int orientation,
+                        const void* ri0, const void* rw, int n_rows,
+                        int k_rows, const void* ci0, const void* cw,
+                        int n_cols, int k_cols, void* canvas,
+                        int64_t canvas_h, int64_t canvas_w, int64_t r0,
+                        int64_t c0, void* stream) {
+  return resize_place_batch_launch(src, 1, 0, src_h, src_w, channels,
+                                   orientation, ri0, rw, n_rows, k_rows, ci0,
+                                   cw, n_cols, k_cols, canvas, 0, canvas_h,
+                                   canvas_w, r0, c0, stream);
 }
 
 // One chunk of one placement (the banded strategy): crop is the oriented
@@ -691,9 +831,28 @@ int resize_place_window_launch(const void* crop, int64_t crop_rows,
                                int k_rows, const void* ci0, const void* cw,
                                int n_cols, int k_cols, void* region,
                                int64_t region_rows, void* stream) {
-  return launch(crop, 1, 0, crop_rows, width, channels, 1, ri0, rw,
-                row_shift, n_rows, k_rows, ci0, cw, n_cols, k_cols, region, 0,
-                region_rows, n_cols, 0, 0, stream);
+  PlaceArgs a = {};
+  a.ri0 = static_cast<const int32_t*>(ri0);
+  a.rw = static_cast<const float*>(rw);
+  a.ci0 = static_cast<const int32_t*>(ci0);
+  a.cw = static_cast<const float*>(cw);
+  a.canvas = static_cast<uint8_t*>(region);
+  a.src_h = crop_rows;
+  a.src_w = width;
+  a.canvas_h = region_rows;
+  a.canvas_w = n_cols;
+  a.channels = channels;
+  a.orientation = 1;
+  a.batch = 1;
+  a.n_rows = n_rows;
+  a.tap_rows = n_rows;
+  a.k_rows = k_rows;
+  a.n_cols = n_cols;
+  a.k_cols = k_cols;
+  const int err = resize_place_prepare(&a);
+  return err != 0 ? err
+                  : resize_place_window_run(&a, crop, 0, row_shift, n_rows,
+                                            stream);
 }
 
 const char* resize_place_error_string(int code) {

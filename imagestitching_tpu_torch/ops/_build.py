@@ -156,6 +156,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i64,                              # region, region rows
         p]                                   # stream
     lib.resize_place_window_launch.restype = i32
+    lib.resize_place_args_size.argtypes = []
+    lib.resize_place_args_size.restype = i32
+    lib.resize_place_prepare.argtypes = [p]             # PlaceArgs*
+    lib.resize_place_prepare.restype = i32
+    lib.resize_place_run.argtypes = [p, p, p, p]    # args, src, canvas, stream
+    lib.resize_place_run.restype = i32
+    lib.resize_place_window_run.argtypes = [
+        p, p, i32, i32, i32,                 # args, crop, start, shift, rows
+        p]                                   # stream
+    lib.resize_place_window_run.restype = i32
     lib.resize_place_staged_args_size.argtypes = []
     lib.resize_place_staged_args_size.restype = i32
     lib.resize_place_staged_prepare.argtypes = [p]      # StagedArgs*

@@ -16,21 +16,29 @@ launched by ``resize_place_one`` (#1), ``resize_place_batch`` (#2) and
   the kernels' wrappers.  For tensors on the CPU they run the plain version,
   :func:`resize_place_ref`; for CUDA tensors they launch the kernel or raise.
   There is no fallback between the two.
-* :class:`WindowLauncher` is kernel #3 for the many chunks of one placement:
-  it checks once what the chunks share (the placement's taps, the region
-  buffer, the crop shape), binds the entry and the stream, and per chunk
-  passes only the crop, the chunk's first tap row and the crop's start.
+* The main path launches the kernels prepared, as kernel #4's
+  ``staged_resize.StagedLaunch`` does: the checks, the packing of a
+  :class:`PlaceArgs` and the tile choice (``resize_place_prepare``) happen
+  once, and each launch checks its tensors with a few compares and makes
+  one ``ctypes`` call.  :class:`PlaceLaunch` is #1 or #2 for one placement
+  and one pair of source and canvas shapes, :class:`PlacementLauncher`
+  holds one per pair seen, and :class:`WindowLauncher` is #3 for the many
+  chunks of one placement (per chunk the crop, the chunk's first tap row
+  and the crop's start).  The three wrappers above are one-shot: prepare
+  and run in one C call.
 * ``launches``, ``batch_launches`` and ``window_launches`` count kernel
-  launches, so a run can show that its main path went through the kernels.
+  launches, so a run can show that its main path went through the kernels;
+  ``oneshot_launches`` counts those of them that the one-shot wrappers
+  made.
 * :func:`draw_placement` is the one placement step: identity placements are
   slices of the oriented source (as at ``_stitch_jit`` and
-  ``batch.py:44-50``), every other drawn placement is resampled by the kernel
-  straight into the canvas.  With ``plain=True`` it is the cross-check
-  engine's step instead: every drawn placement goes through the plain
-  version, with no copy shortcut (the twin of ``xla_compose._stitch_impl``
-  and ``batch._batched_xla``).  :func:`stitch` runs it over one job,
-  :func:`stitch_batch` over B jobs of one plan, and the pipeline's streamed
-  strategy one uploaded source at a time.
+  ``batch.py:44-50``), every other drawn placement is resampled by the
+  step's prepared kernel straight into the canvas.  With ``plain=True`` it
+  is the cross-check engine's step instead: every drawn placement goes
+  through the plain version, with no copy shortcut (the twin of
+  ``xla_compose._stitch_impl`` and ``batch._batched_xla``).  :func:`stitch`
+  runs it over one job, :func:`stitch_batch` over B jobs of one plan, and
+  the pipeline's streamed strategy one uploaded source at a time.
 """
 
 from __future__ import annotations
@@ -53,6 +61,8 @@ launches = 0
 batch_launches = 0
 #: Kernel launches by :func:`resize_place_window` in this process.
 window_launches = 0
+#: Of those launches, the ones the one-shot wrappers made.
+oneshot_launches = 0
 
 #: The batched kernel's z-grid bound (``gridDim.z``).
 MAX_BATCH = 65535
@@ -62,11 +72,13 @@ Taps = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 class _Step(NamedTuple):
     """How one drawn placement is made: device ``taps`` (ri0, rw, ci0, cw)
-    for the resample, and for an identity placement ``copy``, the source
-    row and col offsets into the oriented source of its slice."""
+    for the resample, for an identity placement ``copy``, the source row
+    and col offsets into the oriented source of its slice, and ``launch``,
+    its prepared kernel (a :class:`PlacementLauncher`)."""
 
     copy: Optional[Tuple[int, int]]
     taps: Taps
+    launch: "PlacementLauncher"
 
 
 def resize_place_ref(src: torch.Tensor, orientation: int, ri0: torch.Tensor,
@@ -184,8 +196,7 @@ def _place(entry: str, src: torch.Tensor, orientation: int,
         with torch.cuda.device(src.device):
             err = start()
     if err != 0:
-        raise RuntimeError("resize_place kernel launch failed: "
-                           + lib.resize_place_error_string(err).decode())
+        raise _launch_error(lib, "kernel launch", err)
     return True
 
 
@@ -195,9 +206,10 @@ def resize_place(src: torch.Tensor, orientation: int, ri0: torch.Tensor,
     """Resample the raw HWC uint8 ``src`` (EXIF ``orientation``) with the
     K-tap row taps ``(ri0, rw)`` and column taps ``(ci0, cw)`` and store the
     uint8 result into ``canvas[r0:r0+n_rows, c0:c0+n_cols]`` in place."""
-    global launches
+    global launches, oneshot_launches
     if _place("one", src, orientation, ri0, rw, ci0, cw, canvas, r0, c0):
         launches += 1
+        oneshot_launches += 1
 
 
 def resize_place_batch(src_bhwc: torch.Tensor, orientation: int,
@@ -207,100 +219,55 @@ def resize_place_batch(src_bhwc: torch.Tensor, orientation: int,
     """:func:`resize_place` for B stacked jobs that share the placement:
     ``src_bhwc (B, H, W, C)``, ``canvas_bhwc (B, canvas_h, canvas_w, C)``,
     one kernel launch for the whole batch."""
-    global batch_launches
+    global batch_launches, oneshot_launches
     if _place("batch", src_bhwc, orientation, ri0, rw, ci0, cw, canvas_bhwc,
               r0, c0):
         batch_launches += 1
+        oneshot_launches += 1
 
 
-class WindowLauncher:
-    """Kernel #3 for the row chunks of one placement.
+def _launch_error(lib, what: str, err: int) -> RuntimeError:
+    return RuntimeError(f"resize_place {what} failed: "
+                        + lib.resize_place_error_string(err).decode())
 
-    ``(ri0, rw)`` are the placement's row taps and ``(ci0, cw)`` its column
-    taps, ``region`` the ``(rows, n_cols, C)`` uint8 region buffer and
-    ``crop_shape`` the ``(crop_rows, width, C)`` of every chunk's crop.
-    What the chunks share is checked here, once, and on a CUDA device the
-    library entry, the pointers and the stream current now are bound; a
-    call checks only the crop and the chunk's rows, then launches."""
 
-    def __init__(self, ri0: torch.Tensor, rw: torch.Tensor,
-                 ci0: torch.Tensor, cw: torch.Tensor, region: torch.Tensor,
-                 crop_shape: Sequence[int]):
-        if region.dtype != torch.uint8 or region.ndim != 3 \
-                or not region.is_contiguous():
-            raise ValueError("region must be a contiguous uint8 (rows, "
-                             "n_cols, C) tensor")
-        if region.shape[1] != ci0.shape[0]:
-            raise ValueError(f"region {tuple(region.shape)} must be (rows, "
-                             f"{ci0.shape[0]}, C)")
-        if region.shape[2] not in (1, 3):
-            raise ValueError(f"channels: {region.shape[2]} (1 or 3)")
-        self.crop_shape = tuple(int(s) for s in crop_shape)
-        if len(self.crop_shape) != 3 or self.crop_shape[2] != region.shape[2] \
-                or min(self.crop_shape) < 1:
-            raise ValueError(f"crop shape {self.crop_shape} must be (rows, "
-                             f"width, {region.shape[2]})")
-        device = region.device
-        if device.type not in ("cpu", "cuda"):
-            raise ValueError(f"resize_place runs on cpu or cuda, not {device}")
-        _check_taps(ri0, rw, ci0, cw, device)
-        self.taps, self.region = (ri0, rw, ci0, cw), region
-        self.device = device
-        self._fn = None
-        if device.type == "cuda":
-            from . import _build
+def _window_checks(ri0: torch.Tensor, rw: torch.Tensor, ci0: torch.Tensor,
+                   cw: torch.Tensor, region: torch.Tensor,
+                   crop_shape: Sequence[int]) -> Tuple[int, int, int]:
+    """What every chunk of kernel #3 shares: the taps, the ``(rows, n_cols,
+    C)`` region buffer and the crop shape, returned as a tuple."""
+    if region.dtype != torch.uint8 or region.ndim != 3 \
+            or not region.is_contiguous():
+        raise ValueError("region must be a contiguous uint8 (rows, "
+                         "n_cols, C) tensor")
+    if region.shape[1] != ci0.shape[0]:
+        raise ValueError(f"region {tuple(region.shape)} must be (rows, "
+                         f"{ci0.shape[0]}, C)")
+    if region.shape[2] not in (1, 3):
+        raise ValueError(f"channels: {region.shape[2]} (1 or 3)")
+    shape = tuple(int(s) for s in crop_shape)
+    if len(shape) != 3 or shape[2] != region.shape[2] or min(shape) < 1:
+        raise ValueError(f"crop shape {shape} must be (rows, width, "
+                         f"{region.shape[2]})")
+    if region.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"resize_place runs on cpu or cuda, not "
+                         f"{region.device}")
+    _check_taps(ri0, rw, ci0, cw, region.device)
+    return shape
 
-            lib = _build.load()
-            ptr = ctypes.c_void_p
-            with torch.cuda.device(device):
-                stream = torch.cuda.current_stream().cuda_stream
-            self._fn, self._error = (lib.resize_place_window_launch,
-                                     lib.resize_place_error_string)
-            self._ri0, self._rw = ri0.data_ptr(), rw.data_ptr()
-            self._k = rw.shape[1]
-            self._cols = (ptr(ci0.data_ptr()), ptr(cw.data_ptr()),
-                          ci0.shape[0], cw.shape[1], ptr(region.data_ptr()),
-                          region.shape[0], ptr(stream))
 
-    def __call__(self, crop: torch.Tensor, row_start: int = 0,
-                 row_shift: int = 0, n_rows: Optional[int] = None) -> None:
-        """Resample rows ``[row_start, row_start + n_rows)`` of the
-        placement (default: to the last) from ``crop``, whose first row is
-        row ``row_shift`` of the oriented source, into
-        ``region[:n_rows]``, in place."""
-        global window_launches
-        ri0 = self.taps[0]
-        if n_rows is None:
-            n_rows = ri0.shape[0] - row_start
-        if tuple(crop.shape) != self.crop_shape or crop.dtype != torch.uint8 \
-                or crop.device != self.device or not crop.is_contiguous():
-            raise ValueError(f"crop {tuple(crop.shape)} {crop.dtype} on "
-                             f"{crop.device} must be a contiguous uint8 "
-                             f"{self.crop_shape} on {self.device}")
-        if row_start < 0 or n_rows < 0 or row_start + n_rows > ri0.shape[0] \
-                or n_rows > self.region.shape[0]:
-            raise ValueError(f"rows [{row_start}, {row_start + n_rows}) of "
-                             f"{ri0.shape[0]} into a region of "
-                             f"{self.region.shape[0]}")
-        if n_rows == 0:
-            return
-        if self._fn is None:
-            self.region[:n_rows] = resize_place_window_ref(
-                crop, *self.taps, row_start, row_shift, n_rows)
-            return
-        args = (ctypes.c_void_p(crop.data_ptr()), *self.crop_shape,
-                ctypes.c_void_p(self._ri0 + 4 * row_start),
-                ctypes.c_void_p(self._rw + 4 * row_start * self._k),
-                row_shift, n_rows, self._k, *self._cols)
-        if torch.cuda.current_device() == self.device.index:
-            err = self._fn(*args)
-        else:       # the launch goes to the current device
-            with torch.cuda.device(self.device):
-                err = self._fn(*args)
-        if err != 0:
-            raise RuntimeError("resize_place kernel launch failed: "
-                               + self._error(err).decode())
-        window_launches += 1
+def _window_rows(ri0: torch.Tensor, region: torch.Tensor, row_start: int,
+                 n_rows: Optional[int]) -> int:
+    """A chunk's row count (default: to the last row), checked against the
+    taps and the region."""
+    if n_rows is None:
+        n_rows = ri0.shape[0] - row_start
+    if row_start < 0 or n_rows < 0 or row_start + n_rows > ri0.shape[0] \
+            or n_rows > region.shape[0]:
+        raise ValueError(f"rows [{row_start}, {row_start + n_rows}) of "
+                         f"{ri0.shape[0]} into a region of "
+                         f"{region.shape[0]}")
+    return n_rows
 
 
 def resize_place_window(crop: torch.Tensor, ri0: torch.Tensor,
@@ -314,12 +281,272 @@ def resize_place_window(crop: torch.Tensor, ri0: torch.Tensor,
     ``[row_start, row_start + n_rows)`` are the chunk's (default: all from
     ``row_start``); ``(ci0, cw)`` the placement's column taps.  The uint8
     result goes to ``region[:n_rows]`` of the ``(rows, n_cols, C)`` region
-    buffer, in place.  One chunk of :class:`WindowLauncher`."""
+    buffer, in place.  One-shot: the banded rung's chunks go through
+    :class:`WindowLauncher`."""
+    global window_launches, oneshot_launches
     if crop.ndim != 3:
         raise ValueError(f"crop {tuple(crop.shape)} must be HWC")
-    WindowLauncher(ri0, rw, ci0, cw, region, crop.shape)(
-        crop, row_start, row_shift, n_rows)
+    _window_checks(ri0, rw, ci0, cw, region, crop.shape)
+    if crop.dtype != torch.uint8 or crop.device != region.device \
+            or not crop.is_contiguous():
+        raise ValueError(f"crop {crop.dtype} on {crop.device} must be a "
+                         f"contiguous uint8 tensor on {region.device}")
+    n_rows = _window_rows(ri0, region, row_start, n_rows)
+    if n_rows == 0 or ci0.shape[0] == 0:
+        return
+    if crop.device.type == "cpu":
+        region[:n_rows] = resize_place_window_ref(crop, ri0, rw, ci0, cw,
+                                                  row_start, row_shift,
+                                                  n_rows)
+        return
+    from . import _build
 
+    lib = _build.load()
+    ptr, k = ctypes.c_void_p, rw.shape[1]
+
+    def start():
+        return lib.resize_place_window_launch(
+            ptr(crop.data_ptr()), *crop.shape,
+            ptr(ri0.data_ptr() + 4 * row_start),
+            ptr(rw.data_ptr() + 4 * row_start * k), row_shift, n_rows, k,
+            ptr(ci0.data_ptr()), ptr(cw.data_ptr()), ci0.shape[0],
+            cw.shape[1], ptr(region.data_ptr()), region.shape[0],
+            ptr(torch.cuda.current_stream().cuda_stream))
+
+    if torch.cuda.current_device() == crop.device.index:
+        err = start()
+    else:       # the launch goes to the current device
+        with torch.cuda.device(crop.device):
+            err = start()
+    if err != 0:
+        raise _launch_error(lib, "kernel launch", err)
+    window_launches += 1
+    oneshot_launches += 1
+
+
+# ---------------------------------------------------------------------------
+# Prepared launches: checked and packed once, one ctypes call a launch
+# ---------------------------------------------------------------------------
+
+_p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+
+
+class PlaceArgs(ctypes.Structure):
+    """The C struct ``PlaceArgs`` of ``csrc/resize_place.cu``, field by field
+    in its order: a launch's fixed arguments, then what
+    ``resize_place_prepare`` derives from them (the orientation map, the
+    tile, the grid's columns, the shared memory, the kernel)."""
+
+    _fields_ = [
+        ("ri0", _p), ("rw", _p), ("ci0", _p), ("cw", _p), ("canvas", _p),
+        ("src_h", _i64), ("src_w", _i64), ("src_stride", _i64),
+        ("canvas_h", _i64), ("canvas_w", _i64), ("canvas_stride", _i64),
+        ("r0", _i64), ("c0", _i64),
+        ("channels", _i32), ("orientation", _i32), ("batch", _i32),
+        ("n_rows", _i32), ("tap_rows", _i32), ("k_rows", _i32),
+        ("n_cols", _i32), ("k_cols", _i32),
+        # filled by resize_place_prepare
+        ("base", _i64), ("sy", _i64), ("sx", _i64),
+        ("m_h", _i32), ("m_w", _i32), ("tile_r", _i32), ("tile_c", _i32),
+        ("tiles_c", _i32), ("smem_bytes", _i32), ("kernel", _p)]
+
+
+def _prepare(args: PlaceArgs, index: int):
+    """``resize_place_prepare`` of ``args`` on card ``index``: the library,
+    or ``RuntimeError``."""
+    from . import _build
+
+    lib = _build.load()
+    with torch.cuda.device(index):
+        err = lib.resize_place_prepare(ctypes.byref(args))
+    if err != 0:
+        raise _launch_error(lib, "prepare", err)
+    return lib
+
+
+def _raw_stream():
+    """The current stream's handle as an int, without a Stream object."""
+    return getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+        or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+
+
+class PlaceLaunch:
+    """Kernel #1 (HWC ``src`` and ``canvas``) or #2 (``(B, H, W, C)`` ones)
+    prepared for one placement: resample with the row taps ``(ri0, rw)``
+    and column taps ``(ci0, cw)`` into ``canvas[..., r0:r0+n_rows,
+    c0:c0+n_cols, :]`` in place, once per call, for any source and canvas
+    of the shapes, dtype and device of ``src`` and ``canvas``, contiguous.
+
+    Everything :func:`resize_place` checks is checked here, once.  On the
+    card the launch is packed into :class:`PlaceArgs`, whose tile
+    ``resize_place_prepare`` picks (:attr:`args`); a call compares its
+    tensors with what was prepared and makes one ``ctypes`` call.  On the
+    CPU a call runs the plain version.  The launch holds references to the
+    taps."""
+
+    def __init__(self, src: torch.Tensor, orientation: int,
+                 ri0: torch.Tensor, rw: torch.Tensor, ci0: torch.Tensor,
+                 cw: torch.Tensor, canvas: torch.Tensor, r0: int, c0: int):
+        self.batched = canvas.ndim == 4
+        _check(self.batched, src, ri0, rw, ci0, cw, canvas, r0, c0)
+        if orientation not in range(9):
+            raise ValueError(f"invalid EXIF orientation {orientation}")
+        if src.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"resize_place runs on cpu or cuda, not "
+                             f"{src.device}")
+        self.orientation, self.taps = orientation, (ri0, rw, ci0, cw)
+        self.r0, self.c0 = r0, c0
+        self._shapes = (src.shape, canvas.shape)
+        self._device, self._index = src.device, src.get_device()
+        n_rows, n_cols = ri0.shape[0], ci0.shape[0]
+        self._empty = n_rows == 0 or n_cols == 0
+        self.args: Optional[PlaceArgs] = None
+        if self._index < 0 or self._empty:
+            return
+        h, w, c = src.shape[-3:]
+        canvas_h, canvas_w = canvas.shape[-3:-1]
+        self.args = a = PlaceArgs(
+            ri0.data_ptr(), rw.data_ptr(), ci0.data_ptr(), cw.data_ptr(),
+            None, h, w, h * w * c, canvas_h, canvas_w,
+            canvas_h * canvas_w * c, r0, c0, c, orientation,
+            src.shape[0] if self.batched else 1, n_rows, n_rows,
+            rw.shape[1], n_cols, cw.shape[1])
+        self._lib = _prepare(a, self._index)
+        self._ref = ctypes.addressof(a)
+        self._run = self._lib.resize_place_run
+        self._stream = _raw_stream()
+
+    def __call__(self, src: torch.Tensor, canvas: torch.Tensor) -> None:
+        global launches, batch_launches
+        if (src.shape, canvas.shape) != self._shapes \
+                or src.dtype is not torch.uint8 \
+                or canvas.dtype is not torch.uint8 \
+                or src.device != self._device \
+                or canvas.device != self._device \
+                or not (src.is_contiguous() and canvas.is_contiguous()):
+            raise ValueError(
+                f"src {tuple(src.shape)} {src.dtype} and canvas "
+                f"{tuple(canvas.shape)} {canvas.dtype} on {src.device} / "
+                f"{canvas.device}: prepared for contiguous uint8 "
+                f"{tuple(self._shapes[0])} and {tuple(self._shapes[1])} on "
+                f"{self._device}")
+        if self._empty:
+            return
+        if self._index < 0:
+            n_rows, n_cols = self.taps[0].shape[0], self.taps[2].shape[0]
+            canvas[..., self.r0:self.r0 + n_rows, self.c0:self.c0 + n_cols,
+                   :] = resize_place_ref(src, self.orientation, *self.taps)
+            return
+        # the launch goes to the current device: make it the tensors' for
+        # the call where it is not
+        if torch.cuda.current_device() == self._index:
+            err = self._run(self._ref, src.data_ptr(), canvas.data_ptr(),
+                            self._stream(self._index))
+        else:
+            with torch.cuda.device(self._index):
+                err = self._run(self._ref, src.data_ptr(), canvas.data_ptr(),
+                                self._stream(self._index))
+        if err != 0:
+            raise _launch_error(self._lib, "kernel launch", err)
+        if self.batched:
+            batch_launches += 1
+        else:
+            launches += 1
+
+
+class PlacementLauncher:
+    """The prepared kernel of one drawn placement (``orientation``, its
+    ``taps`` and the region's corner ``(r0, c0)``): #1 for an HWC source
+    and canvas, #2 for ``(B, H, W, C)`` ones.  It holds one
+    :class:`PlaceLaunch` per pair of source and canvas shapes (a job's
+    channel count, a batch's size), made at the pair's first call; the
+    oldest goes once there are ``_LAUNCHES_MAX``."""
+
+    _LAUNCHES_MAX = 8
+
+    def __init__(self, orientation: int, taps: Taps, r0: int, c0: int):
+        self.orientation, self.taps = orientation, taps
+        self.r0, self.c0 = r0, c0
+        self._launches: Dict[tuple, PlaceLaunch] = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, src: torch.Tensor, canvas: torch.Tensor) -> None:
+        key = (src.shape, canvas.shape)
+        launch = self._launches.get(key)
+        if launch is None:
+            launch = PlaceLaunch(src, self.orientation, *self.taps, canvas,
+                                 self.r0, self.c0)
+            with self._lock:
+                self._launches[key] = launch
+                if len(self._launches) > self._LAUNCHES_MAX:
+                    del self._launches[next(iter(self._launches))]
+        launch(src, canvas)
+
+
+class WindowLauncher:
+    """Kernel #3 for the row chunks of one placement, prepared.
+
+    ``(ri0, rw)`` are the placement's row taps and ``(ci0, cw)`` its column
+    taps, ``region`` the ``(rows, n_cols, C)`` uint8 region buffer and
+    ``crop_shape`` the ``(crop_rows, width, C)`` of every chunk's crop.
+    What the chunks share is checked here, once; on a CUDA device the
+    launch is packed into :class:`PlaceArgs` and ``resize_place_prepare``
+    picks its tile for the region's rows.  A call checks only the crop and
+    the chunk's rows and makes one ``ctypes`` call; a chunk of fewer rows
+    launches fewer row tiles of the same tile.  On the CPU a call runs the
+    plain version."""
+
+    def __init__(self, ri0: torch.Tensor, rw: torch.Tensor,
+                 ci0: torch.Tensor, cw: torch.Tensor, region: torch.Tensor,
+                 crop_shape: Sequence[int]):
+        self.crop_shape = torch.Size(_window_checks(ri0, rw, ci0, cw, region,
+                                                    crop_shape))
+        self.taps, self.region = (ri0, rw, ci0, cw), region
+        self.device, self._index = region.device, region.get_device()
+        self.args: Optional[PlaceArgs] = None
+        if self._index < 0:
+            return
+        crop_rows, width, c = self.crop_shape
+        n_cols = ci0.shape[0]
+        self.args = a = PlaceArgs(
+            ri0.data_ptr(), rw.data_ptr(), ci0.data_ptr(), cw.data_ptr(),
+            region.data_ptr(), crop_rows, width, 0, region.shape[0], n_cols,
+            0, 0, 0, c, 1, 1, min(region.shape[0], ri0.shape[0]),
+            ri0.shape[0], rw.shape[1], n_cols, cw.shape[1])
+        self._lib = _prepare(a, self._index)
+        self._ref = ctypes.addressof(a)
+        self._run = self._lib.resize_place_window_run
+        self._stream = _raw_stream()
+
+    def __call__(self, crop: torch.Tensor, row_start: int = 0,
+                 row_shift: int = 0, n_rows: Optional[int] = None) -> None:
+        """Resample rows ``[row_start, row_start + n_rows)`` of the
+        placement (default: to the last) from ``crop``, whose first row is
+        row ``row_shift`` of the oriented source, into
+        ``region[:n_rows]``, in place."""
+        global window_launches
+        if crop.shape != self.crop_shape or crop.dtype is not torch.uint8 \
+                or crop.device != self.device or not crop.is_contiguous():
+            raise ValueError(f"crop {tuple(crop.shape)} {crop.dtype} on "
+                             f"{crop.device} must be a contiguous uint8 "
+                             f"{tuple(self.crop_shape)} on {self.device}")
+        n_rows = _window_rows(self.taps[0], self.region, row_start, n_rows)
+        if n_rows == 0 or self.region.shape[1] == 0:
+            return
+        if self._index < 0:
+            self.region[:n_rows] = resize_place_window_ref(
+                crop, *self.taps, row_start, row_shift, n_rows)
+            return
+        if torch.cuda.current_device() == self._index:
+            err = self._run(self._ref, crop.data_ptr(), row_start, row_shift,
+                            n_rows, self._stream(self._index))
+        else:       # the launch goes to the current device
+            with torch.cuda.device(self._index):
+                err = self._run(self._ref, crop.data_ptr(), row_start,
+                                row_shift, n_rows, self._stream(self._index))
+        if err != 0:
+            raise _launch_error(self._lib, "kernel launch", err)
+        window_launches += 1
 
 # ---------------------------------------------------------------------------
 # The placement loop: one job, or a batch of jobs of one plan
@@ -361,11 +588,12 @@ def _make_steps(plan: LayoutPlan,
             steps.append(None)
             continue
         t = torch_compose.placement_taps(p, plan.filter)
-        steps.append(_Step(
-            geometry.placement_copy_offsets(p, plan.filter),
-            tuple(torch.from_numpy(a).to(device)
-                  for a in (t["rows"]["i0"], t["rows"]["w"],
-                            t["cols"]["i0"], t["cols"]["w"]))))
+        taps = tuple(torch.from_numpy(a).to(device)
+                     for a in (t["rows"]["i0"], t["rows"]["w"],
+                               t["cols"]["i0"], t["cols"]["w"]))
+        steps.append(_Step(geometry.placement_copy_offsets(p, plan.filter),
+                           taps,
+                           PlacementLauncher(p.orientation, taps, r0, c0)))
     return steps
 
 
@@ -373,7 +601,7 @@ def draw_placement(src: torch.Tensor, p: Placement, step: _Step,
                    canvas: torch.Tensor, plain: bool) -> None:
     """Draw placement ``p`` from its raw source into ``canvas`` in place: an
     HWC source and canvas for one job (kernel #1), ``(B, H, W, C)`` ones for
-    a batch (kernel #2)."""
+    a batch (kernel #2), launched prepared (``step.launch``)."""
     r0, r1 = p.row_span
     c0, c1 = p.col_span
     if plain:
@@ -386,10 +614,8 @@ def draw_placement(src: torch.Tensor, p: Placement, step: _Step,
         oriented = torch_compose.orient(src, p.orientation)
         canvas[..., r0:r1, c0:c1, :] = oriented[
             ..., sr:sr + r1 - r0, sc:sc + c1 - c0, :]
-    elif canvas.ndim == 4:
-        resize_place_batch(src, p.orientation, *step.taps, canvas, r0, c0)
     else:
-        resize_place(src, p.orientation, *step.taps, canvas, r0, c0)
+        step.launch(src, canvas)
 
 
 def _compose(plan: LayoutPlan, srcs: Sequence[torch.Tensor],

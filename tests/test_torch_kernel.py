@@ -770,3 +770,197 @@ def test_staged_refused_launch_raises(card):
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         launch(band)
     assert staged_resize.staged_launches == before
+
+
+# ------------------------------------------------- #1-#3 prepared launches
+
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_prepared_kernel_equals_one_shot_and_plain(card, name):
+    """#1 and #2 prepared (``PlaceLaunch``: checked, packed and tiled once,
+    one ``ctypes`` call a launch) against the one-shot shells and the plain
+    version, bit for bit: one job, then B = 3 jobs of other data through
+    one prepared launch, each launch counted once and none as one-shot."""
+    plan, imgs = _job(name)
+    c = _CASES[name][3]
+    rng = np.random.default_rng(sum(map(ord, name)) + 2)
+    checked = 0
+    for raw, p in zip(imgs, plan.placements):
+        if geometry.placement_copy_offsets(p, plan.filter) is not None:
+            continue
+        src, taps = _operands(raw, p, plan.filter, card)
+        r0, r1 = p.row_span
+        c0, c1 = p.col_span
+        canvas = torch.zeros((plan.canvas_h, plan.canvas_w, c),
+                             dtype=torch.uint8, device=card)
+        one = torch.zeros_like(canvas)
+        launch = cuda_resize.PlaceLaunch(src, p.orientation, *taps, canvas,
+                                         r0, c0)
+        assert launch.args.kernel and launch.args.tile_r >= 1
+        counts = (cuda_resize.launches, cuda_resize.oneshot_launches)
+        launch(src, canvas)
+        assert (cuda_resize.launches, cuda_resize.oneshot_launches) == (
+            counts[0] + 1, counts[1])
+        cuda_resize.resize_place(src, p.orientation, *taps, one, r0, c0)
+        assert torch.equal(canvas, one), f"{name} #{p.index}"
+        want = cuda_resize.resize_place_ref(src, p.orientation, *taps)
+        assert torch.equal(canvas[r0:r1, c0:c1], want)
+        stack = torch.from_numpy(rng.integers(
+            0, 256, (3, p.raw_h, p.raw_w, c), np.uint8)).to(card)
+        batch = torch.zeros((3, plan.canvas_h, plan.canvas_w, c),
+                            dtype=torch.uint8, device=card)
+        ones = torch.zeros_like(batch)
+        before = cuda_resize.batch_launches
+        cuda_resize.PlaceLaunch(stack, p.orientation, *taps, batch, r0,
+                                c0)(stack, batch)
+        assert cuda_resize.batch_launches == before + 1
+        cuda_resize.resize_place_batch(stack, p.orientation, *taps, ones,
+                                       r0, c0)
+        assert torch.equal(batch, ones), f"{name} #{p.index} batch"
+        assert torch.equal(batch[:, r0:r1, c0:c1],
+                           cuda_resize.resize_place_batch_ref(
+                               stack, p.orientation, *taps))
+        checked += 1
+    assert checked, f"{name}: no resampled placement"
+
+
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_prepared_window_equals_one_shot_and_plain(card, name):
+    """#3 prepared (``WindowLauncher``) at chunks of about 16 rows, the last
+    one shorter than the region (it launches fewer row tiles of the tile
+    prepared): every chunk equal bit for bit to the one-shot shell's on the
+    same rows and to the plain version, rows past the chunk untouched."""
+    plan, imgs = _job(name)
+    checked = 0
+    for raw, p in zip(imgs, plan.placements):
+        if geometry.placement_copy_offsets(p, plan.filter) is not None:
+            continue
+        a3 = raw if raw.ndim == 3 else raw[:, :, None]
+        oriented = geometry.orient_array(a3, p.orientation)
+        rows, k = p.row_span[1] - p.row_span[0], 16
+        while rows % k == 0:
+            k += 1
+        wp = WindowPlan(p, plan.filter, k)
+        taps = [torch.from_numpy(t).to(card)
+                for t in (wp.ri0, wp.rw, wp.ci0, wp.cw)]
+        c = a3.shape[2]
+        region = torch.zeros((wp.chunk, wp.n_cols, c), dtype=torch.uint8,
+                             device=card)
+        one = torch.zeros_like(region)
+        launch = cuda_resize.WindowLauncher(*taps, region,
+                                            (wp.crop_rows, wp.disp_w, c))
+        assert launch.args.kernel and launch.args.tap_rows == wp.n_rows
+        short = 0
+        for g in range(wp.n_chunks):
+            a, valid, s_lo = wp.chunk_window(g)
+            crop = torch.from_numpy(wp.stage_crop(oriented, g)).to(card)
+            region.fill_(7)
+            one.fill_(7)
+            counts = (cuda_resize.window_launches,
+                      cuda_resize.oneshot_launches)
+            launch(crop, a, s_lo, valid)
+            assert (cuda_resize.window_launches,
+                    cuda_resize.oneshot_launches) == (counts[0] + 1,
+                                                      counts[1])
+            cuda_resize.resize_place_window(crop, *taps, one, a, s_lo, valid)
+            assert torch.equal(region, one), f"{name} #{p.index} chunk {g}"
+            assert torch.equal(region[:valid],
+                               cuda_resize.resize_place_window_ref(
+                                   crop, *taps, a, s_lo, valid))
+            assert bool((region[valid:] == 7).all())
+            short += valid < wp.chunk
+        assert short == 1
+        checked += 1
+    assert checked, f"{name}: no resampled placement"
+
+
+def test_prepared_preview_equals_one_shot(card):
+    """The preview's one large launch (a 27282 x 3000 canvas onto 750 cols,
+    bilinear, K = 2), prepared against the one-shot shell that
+    ``make_preview`` takes and the plain version, bit for bit."""
+    from imagestitching_tpu_torch import api
+
+    gen = torch.Generator(device=card).manual_seed(21)
+    canvas = torch.randint(0, 256, (27282, 3000, 3), generator=gen,
+                           dtype=torch.uint8, device=card)
+    got = api.make_preview(canvas, 750)
+    ph, pw = got.shape[:2]
+    ri0, rw = geometry.filter_taps(0, ph, 0.0, float(ph), 27282, "bilinear")
+    ci0, cw = geometry.filter_taps(0, pw, 0.0, float(pw), 3000, "bilinear")
+    taps = [torch.from_numpy(np.ascontiguousarray(a)).to(card)
+            for a in (ri0, rw.astype(np.float32), ci0,
+                      cw.astype(np.float32))]
+    out = torch.zeros((ph, pw, 3), dtype=torch.uint8, device=card)
+    cuda_resize.PlaceLaunch(canvas, 1, *taps, out, 0, 0)(canvas, out)
+    np.testing.assert_array_equal(out.cpu().numpy(), got)
+    assert torch.equal(out, cuda_resize.resize_place_ref(canvas, 1, *taps))
+
+
+def test_place_args_size_is_the_librarys(card):
+    import ctypes
+
+    lib = _build.load()
+    assert ctypes.sizeof(cuda_resize.PlaceArgs) \
+        == lib.resize_place_args_size()
+
+
+def test_prepared_launch_rejects_another_source_on_card(card):
+    plan, imgs = _job("orient6")
+    p = next(q for q in plan.placements
+             if geometry.placement_copy_offsets(q, plan.filter) is None)
+    src, taps = _operands(imgs[p.index], p, plan.filter, card)
+    canvas = torch.zeros((plan.canvas_h, plan.canvas_w, 3),
+                         dtype=torch.uint8, device=card)
+    launch = cuda_resize.PlaceLaunch(src, p.orientation, *taps, canvas,
+                                     p.row_span[0], p.col_span[0])
+    before = cuda_resize.launches
+    for bad in (src[1:].contiguous(), src.cpu(),
+                src.transpose(0, 1).contiguous().transpose(0, 1)):
+        with pytest.raises(ValueError):
+            launch(bad, canvas)
+    assert cuda_resize.launches == before
+
+
+def test_refused_prepare_and_launch_raise(card):
+    """A launch the library refuses raises RuntimeError and counts nothing:
+    at preparation (a batch of 0, forced into the arguments) and at the
+    call (shared memory above what the kernel may take, forced into the
+    prepared arguments).  Nothing falls back to the plain version."""
+    plan, imgs = _job("orient6")
+    p = next(q for q in plan.placements
+             if geometry.placement_copy_offsets(q, plan.filter) is None)
+    src, taps = _operands(imgs[p.index], p, plan.filter, card)
+    canvas = torch.zeros((plan.canvas_h, plan.canvas_w, 3),
+                         dtype=torch.uint8, device=card)
+    launch = cuda_resize.PlaceLaunch(src, p.orientation, *taps, canvas,
+                                     p.row_span[0], p.col_span[0])
+    args = cuda_resize.PlaceArgs.from_buffer_copy(launch.args)
+    args.batch = 0
+    with pytest.raises(RuntimeError, match="prepare failed"):
+        cuda_resize._prepare(args, card.index)
+    launch.args.smem_bytes = 240 * 1024
+    before = cuda_resize.launches
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        launch(src, canvas)
+    assert cuda_resize.launches == before
+    assert int(canvas.count_nonzero()) == 0
+
+
+def test_main_path_launches_prepared_on_card(card):
+    """The resident, batched and banded paths launch #1, #2 and #3 through
+    their prepared forms: each launch counted, none by a one-shot shell."""
+    plan, imgs = _job("lanczos3-k97")
+    n = sum(geometry.placement_copy_offsets(p, plan.filter) is None
+            for p in plan.placements)
+    counts = [cuda_resize.launches, cuda_resize.batch_launches,
+              cuda_resize.window_launches, cuda_resize.oneshot_launches]
+    got = cuda_resize.stitch(plan, imgs, card)
+    both = cuda_resize.stitch_batch(plan, [np.stack([a, a]) for a in imgs],
+                                    card)
+    banded, _ = pipeline._run_banded(plan, imgs, 3, 64, "auto", card,
+                                     lambda *_: None)
+    assert torch.equal(both[0], got) and torch.equal(both[1], got)
+    assert np.array_equal(banded, got.cpu().numpy())
+    assert cuda_resize.launches - counts[0] == n
+    assert cuda_resize.batch_launches - counts[1] == n
+    assert cuda_resize.window_launches - counts[2] > n
+    assert cuda_resize.oneshot_launches == counts[3]

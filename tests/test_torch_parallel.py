@@ -281,7 +281,8 @@ def test_batched_mesh_kernel_fault_propagates(monkeypatch):
     def fault(*a, **k):
         raise RuntimeError("resize_place kernel launch failed: injected")
 
-    monkeypatch.setattr(cuda_resize, "resize_place_batch", fault)
+    # the batched kernel's launch on the main path: the prepared form
+    monkeypatch.setattr(cuda_resize.PlaceLaunch, "__call__", fault)
     plan = plan_for([ImageSpec(48, 32), ImageSpec(32, 40)], gap=2)
     bs = batch.BatchedStitch(plan, 4, mesh=cpu_mesh(n=2))
     with pytest.raises(RuntimeError, match="injected"):
