@@ -38,7 +38,7 @@ from .config import CanvasLimits, RuntimeConfig, StitchOptions
 from .core import oracle as _oracle
 from .core.layout import ImageSpec, solve
 from .imgio import codec
-from .runtime import decoding
+from .runtime import decoding, spans
 from .runtime.logger import get_logger
 
 ArrayLike = np.ndarray
@@ -319,7 +319,28 @@ def stitch(items: Sequence[ImageInput],
     image is placed the moment its decode lands.
 
     With ``return_metrics=True`` returns ``(array, StitchMetrics)``.
+
+    The call is one root span, ``stitch``, with a job id of its own; each
+    decode of the overlapped path is a ``decode`` span under it, on the
+    decode pool's thread.
     """
+    with spans.span("stitch", job=spans.new_job()):
+        return _stitch(items, direction, mode, gap, options, config, limits,
+                       on_error, progress, return_metrics, keep_on_device)
+
+
+def _traced_loader(item: ImageInput, config: RuntimeConfig,
+                   ctx: spans.Context) -> Callable[[], np.ndarray]:
+    """A loader for the decode pool whose call is a ``decode`` span of
+    the job and span ``ctx``."""
+    def load() -> np.ndarray:
+        with spans.span("decode", job=ctx.job, parent=ctx.span):
+            return _load_one(item, config)[0]
+    return load
+
+
+def _stitch(items, direction, mode, gap, options, config, limits, on_error,
+            progress, return_metrics, keep_on_device):
     if options is None:
         options = StitchOptions(direction=direction, mode=mode, gap=gap)
     config = (config or RuntimeConfig()).validate()
@@ -338,8 +359,8 @@ def stitch(items: Sequence[ImageInput],
         if all(s is not None for s in specs):
             from .runtime import pipeline
             plan = solve(specs, options, limits)
-            loaders = [(lambda it=it: _load_one(it, config)[0])
-                       for it in items]
+            ctx = spans.current()
+            loaders = [_traced_loader(it, config, ctx) for it in items]
             copies = (None if keep_on_device
                       else _blit_copies(plan, config))
             if copies is not None:

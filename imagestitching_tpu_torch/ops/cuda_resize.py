@@ -37,8 +37,9 @@ launched by ``resize_place_one`` (#1), ``resize_place_batch`` (#2) and
   is the cross-check engine's step instead: every drawn placement goes
   through the plain version, with no copy shortcut (the twin of
   ``xla_compose._stitch_impl`` and ``batch._batched_xla``).  :func:`stitch`
-  runs it over one job, :func:`stitch_batch` over B jobs of one plan, and
-  the pipeline's streamed strategy one uploaded source at a time.
+  runs it over one job, :func:`stitch_batch` over B jobs of one plan (its
+  ``batch.h2d`` and ``batch.draw`` spans), and the pipeline's streamed
+  strategy one uploaded source at a time.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ import torch
 
 from ..core import geometry
 from ..core.layout import LayoutPlan, Placement
+from ..runtime import spans
 from . import torch_compose
 from .assemble import job_channels, new_canvas, source_tensor
 
@@ -680,8 +682,11 @@ def stitch_batch(plan: LayoutPlan, stacks: Sequence, device,
     :func:`plan_steps`) lets a caller hold its taps; work is enqueued on the
     current stream and the caller synchronises."""
     device = torch.device(device)
-    srcs = _stack_tensors(plan, stacks, device)
-    canvas = new_canvas(plan, srcs[0].shape[3], device, (srcs[0].shape[0],))
-    _compose(plan, srcs, canvas,
-             plan_steps(plan, device) if steps is None else steps, plain)
+    with spans.span("batch.h2d") as s:
+        srcs = _stack_tensors(plan, stacks, device)
+    with spans.span("batch.draw", start_ns=s.end_ns):
+        canvas = new_canvas(plan, srcs[0].shape[3], device,
+                            (srcs[0].shape[0],))
+        _compose(plan, srcs, canvas,
+                 plan_steps(plan, device) if steps is None else steps, plain)
     return canvas

@@ -23,6 +23,11 @@ PyTorch runs eagerly, so there is nothing to compile per batch size: the
 JAX class's ``jax.jit``, ``ensure_compile_cache`` and
 ``check_plan_feasible`` (the gather kernel has no ``Infeasible``) have no
 twin.
+
+A call is timed as spans (:mod:`..runtime.spans`): per shard ``batch.h2d``
+(the upload of its stacks) and ``batch.draw`` (the enqueue of its canvas
+and placements), then per device ``batch.sync`` (the wait for the kernels)
+and per shard ``batch.readback`` (the copy into the host array).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from ..core.layout import LayoutPlan
 from ..ops import cuda_resize
+from ..runtime import spans
 from ..runtime.pipeline import resolve_device
 from .mesh import DeviceMesh, job_sharding
 
@@ -108,12 +114,15 @@ class BatchedStitch:
                     f"slot {p.index}: expected (B={self.batch_size}, H, W, C),"
                     f" got {shape}")
         outs = self.run_shards(stacked_images)
-        for d in {d for d, _ in self.shards if d.type == "cuda"}:
-            # a kernel fault surfaces here, inside the caller's flush
-            torch.cuda.synchronize(d)
+        for d in dict.fromkeys(d for d, _ in self.shards):
+            with spans.span("batch.sync"):
+                if d.type == "cuda":
+                    # a kernel fault surfaces here, inside the caller's flush
+                    torch.cuda.synchronize(d)
         host = np.empty((self.batch_size, *outs[0].shape[1:]), np.uint8)
         for (_, (lo, hi)), out in zip(self.shards, outs):
-            torch.from_numpy(host[lo:hi]).copy_(out)
+            with spans.span("batch.readback"):
+                torch.from_numpy(host[lo:hi]).copy_(out)
         return host
 
 

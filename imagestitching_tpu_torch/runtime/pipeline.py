@@ -9,8 +9,9 @@ classifier ``_is_oom`` (:773-787), the demotion ladder (``_banded_bands``
 with the single-device ladder of ``_run_body`` (:1009-1055) and its
 ``space-sharded`` branch (:949-1007), and the device-free host-blit path
 ``_host_blit`` (:917-939), and the overlapped scheduler ``run_overlapped``
-(:512-557, :579-749) with its transport probe ``_transport_rtt`` (:565-576)
-and the profiler switch ``_Profile`` (:493-509).
+(:512-557, :579-749) with the profiler switch ``_Profile`` (:493-509).  The
+JAX scheduler's transport probe (:565-576) has no twin: the ``drain`` span
+times the wait it stood for, and ``transport_rtt_s`` stays 0.
 
 The tiler's ``plan_execution`` picks the first rung from the memory
 budget: ``resident`` (every source and the canvas on the device), then
@@ -32,6 +33,12 @@ no ``Infeasible``.
 image headers, and each source is uploaded and drawn the moment its decode
 lands (decode || upload || compute), through the same placement step as the
 resident and streamed rungs; an OOM demotes it to the banded rung.
+
+Each phase is a span (:mod:`.spans`): ``plan``; per staged source
+``stage.slot_wait``, ``stage.pin_copy``, ``stage.enqueue``, ``draw`` and
+``stage.fence``, back to back; ``drain``; ``readback`` with the pages it
+made resident; and ``streamed`` / ``banded`` at those rungs' entries.  ``StitchMetrics``' overlapped timings are sums of the same clock
+readings.
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ from ..ops import cuda_resize, torch_compose
 from ..ops.assemble import job_channels, new_canvas, source_array, \
     source_tensor
 from ..ops.window import WindowPlan
-from . import tiler
+from . import spans, tiler
 from .logger import get_logger
 
 ProgressFn = Callable[[str, float], None]
@@ -72,15 +79,16 @@ class StitchMetrics:
     paths, the source windows on the banded one.
 
     The overlapped path (:func:`run_overlapped`) also fills
-    ``transport_rtt_s``, a one-byte device-to-host read on the idle device
-    (the drain in ``compute_s`` pays one), and ``stage_wait_s`` /
-    ``stage_wait_max_s``, the host time blocked in the per-source staging
-    calls (a wait for a free pinned slot, the copy into it, the enqueues and
-    the staged-bytes fence): near 0 with a large ``compute_s`` means the
-    card drains work after the last decode; large means the uploads hold
-    the host back, and the maximum tells one slow source from a slow link.
-    There ``prepare_s`` is the decode wall and ``compute_s`` the drain
-    exposed after the last decode."""
+    ``stage_wait_s`` / ``stage_wait_max_s``, the host time blocked in the
+    per-source staging calls (the sum of a job's ``stage.*`` and ``draw``
+    spans: a wait for a free pinned slot, the copy into it, the enqueues
+    and the staged-bytes fence): near 0 with a large ``compute_s`` means
+    the card drains work after the last decode; large means the uploads
+    hold the host back, and the maximum tells one slow source from a slow
+    link.  There ``prepare_s`` is the decode wall, ``compute_s`` the
+    ``drain`` span (the device work exposed after the last decode) and
+    ``readback_s`` the ``readback`` span.  ``transport_rtt_s`` stays 0 (the
+    field is the JAX package's)."""
 
     strategy: str = "resident"
     prepare_s: float = 0.0
@@ -330,14 +338,15 @@ def _run_banded(plan: LayoutPlan, images: Sequence[np.ndarray],
     """Orient on the host, then the kernel path (``auto``/``cuda``) or the
     plain executor (``torch``)."""
     job_channels(plan, images)
-    oriented = [geometry.orient_array(source_array(raw, p, channels),
-                                      p.orientation)
-                for raw, p in zip(images, plan.placements)]
-    if engine == "torch":
-        return _BandedExecutor(plan, band_rows, channels,
-                               device).run(oriented, progress)
-    return _run_banded_kernel(plan, oriented, channels, band_rows, device,
-                              progress)
+    with spans.span("banded"):
+        oriented = [geometry.orient_array(source_array(raw, p, channels),
+                                          p.orientation)
+                    for raw, p in zip(images, plan.placements)]
+        if engine == "torch":
+            return _BandedExecutor(plan, band_rows, channels,
+                                   device).run(oriented, progress)
+        return _run_banded_kernel(plan, oriented, channels, band_rows,
+                                  device, progress)
 
 
 def _run_rung(strategy: str, band: Optional[int], plan: LayoutPlan,
@@ -354,8 +363,9 @@ def _run_rung(strategy: str, band: Optional[int], plan: LayoutPlan,
         return _run_banded(plan, images, channels, band, config.engine,
                            device, progress)
     if strategy == "streamed":
-        out, uploaded = _run_streamed(plan, images, channels, config, device,
-                                      progress)
+        with spans.span("streamed"):
+            out, uploaded = _run_streamed(plan, images, channels, config,
+                                          device, progress)
     else:
         out = cuda_resize.stitch(plan, images, device,
                                  plain=config.engine == "torch")
@@ -624,21 +634,37 @@ class _Stager:
         self.limit = limit
         self.queued: collections.deque = collections.deque()
         self.queued_bytes = 0
+        self.enqueued_ns = 0
 
-    def upload(self, raw: np.ndarray) -> torch.Tensor:
-        """``raw`` (contiguous uint8 HWC) as a tensor on the device, ready
-        for work enqueued on the current stream."""
+    def upload(self, raw: np.ndarray,
+               start_ns: Optional[int] = None) -> torch.Tensor:
+        """``raw`` (uint8 HWC, any strides) as a tensor on the device,
+        ready for work enqueued on the current stream.  Timed as three
+        spans back to back, the first from ``start_ns`` where given:
+        ``stage.slot_wait`` (the slot's last upload landing),
+        ``stage.pin_copy`` (the copy into the slot, which also makes a
+        strided view contiguous) and ``stage.enqueue``
+        (the copy to the device and its events); :attr:`enqueued_ns` is the
+        last one's end."""
         k, self.next = self.next, (self.next + 1) % len(self.slots)
-        if self.slot_done[k] is not None:
-            self.slot_done[k].synchronize()   # its last upload has landed
-        host = self.slots[k][:raw.nbytes].view(raw.shape)
-        np.copyto(host.numpy(), raw)
+        with spans.span("stage.slot_wait", start_ns=start_ns) as s:
+            if self.slot_done[k] is not None:
+                self.slot_done[k].synchronize()   # its last upload landed
+        with spans.span("stage.pin_copy", start_ns=s.end_ns) as s:
+            host = self.slots[k][:raw.nbytes].view(raw.shape)
+            np.copyto(host.numpy(), raw)
+        with spans.span("stage.enqueue", start_ns=s.end_ns) as s:
+            src = self._enqueue(k, host)
+        self.enqueued_ns = s.end_ns
+        return src
+
+    def _enqueue(self, k: int, host: torch.Tensor) -> torch.Tensor:
         if not self.cuda:
-            src = torch.empty(raw.shape, dtype=torch.uint8)
+            src = torch.empty(host.shape, dtype=torch.uint8)
             src.copy_(host)
             return src
         with torch.cuda.stream(self.copy_stream):
-            src = torch.empty(raw.shape, dtype=torch.uint8,
+            src = torch.empty(host.shape, dtype=torch.uint8,
                               device=self.device)
             src.copy_(host, non_blocking=True)
             done = torch.cuda.Event()
@@ -691,53 +717,15 @@ def run_overlapped(plan: LayoutPlan, loaders, config: RuntimeConfig,
     it.
     """
     config = config.validate()
-    log = get_logger()
-    m = StitchMetrics(canvas_w=plan.canvas_w, canvas_h=plan.canvas_h,
-                      strategy="overlapped")
-    t_start = time.perf_counter()
-    channels = 3
     device = resolve_device(config.device)
-
-    ex = tiler.plan_execution(plan, config.budget, channels)
-    m.est_peak_bytes = ex.est_peak_bytes
-    log.event("pipeline.plan", strategy=f"overlapped/{ex.strategy}",
-              est_peak_mb=round(ex.est_peak_bytes / 1e6, 1),
-              budget_mb=round(ex.budget_bytes / 1e6, 1),
-              canvas=(plan.canvas_w, plan.canvas_h))
-
     prof = _Profile(config.profile, device)
     try:
         with (torch.cuda.device(device) if device.type == "cuda"
               else contextlib.nullcontext()):
-            return _run_overlapped_body(plan, loaders, config, progress, m,
-                                        ex, log, t_start, channels, device,
-                                        keep_on_device)
+            return _run_overlapped_body(plan, loaders, config, progress,
+                                        device, keep_on_device)
     finally:
         prof.stop()
-
-
-# Per-process cache of the idle-device transport probe: the round trip is a
-# property of the host and the card, not of a job, so steady-state serving
-# pays a probe at most once per TTL.  A probe taken while the card is busy
-# overcounts (it queues behind the work): acceptable for an attribution
-# metric.
-_RTT_TTL_S = 300.0
-_rtt_cache: dict = {}
-
-
-def _transport_rtt(device: torch.device) -> float:
-    """Seconds of a one-byte device-to-host read after a synchronise."""
-    now = time.monotonic()
-    at, rtt = _rtt_cache.get(device, (float("-inf"), 0.0))
-    if now - at > _RTT_TTL_S:
-        probe = torch.zeros(1, dtype=torch.uint8, device=device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        probe.cpu()
-        rtt = time.perf_counter() - t0
-        _rtt_cache[device] = (now, rtt)
-    return rtt
 
 
 def _drain(device: torch.device) -> None:
@@ -746,10 +734,12 @@ def _drain(device: torch.device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
-def _run_overlapped_body(plan, loaders, config, progress, m, ex, log,
-                         t_start, channels, device, keep_on_device):
+def _run_overlapped_body(plan, loaders, config, progress, device,
+                         keep_on_device):
     from . import decoding
 
+    log = get_logger()
+    channels = 3
     n = len(loaders)
 
     def _checked(i: int, raw: np.ndarray) -> np.ndarray:
@@ -767,36 +757,43 @@ def _run_overlapped_body(plan, loaders, config, progress, m, ex, log,
     composited = [False] * n
     canvas = steps = stager = None
     oom = None
-    if ex.strategy in ("resident", "streamed"):
-        drawn = [p for p in plan.placements
-                 if p.row_span[1] > p.row_span[0]
-                 and p.col_span[1] > p.col_span[0]]
-        try:
-            canvas = new_canvas(plan, channels, device)
-            steps = cuda_resize.plan_steps(plan, device)
-            stager = _Stager(
-                device, max((p.raw_h * p.raw_w * channels for p in drawn),
-                            default=1), max(1, min(3, len(drawn))),
-                _fence_limit(plan, channels, config))
-        except Exception as e:  # noqa: BLE001 — OOM classification
-            if not _is_oom(e):
-                raise
-            oom = e   # the canvas does not fit: decode, keep, go banded
-            canvas = steps = stager = None
-            log.event("pipeline.oom_retry", failed="overlapped-alloc",
-                      band=None)
+    with spans.span("plan") as planned:
+        ex = tiler.plan_execution(plan, config.budget, channels)
+        m = StitchMetrics(canvas_w=plan.canvas_w, canvas_h=plan.canvas_h,
+                          strategy="overlapped",
+                          est_peak_bytes=ex.est_peak_bytes)
+        log.event("pipeline.plan", strategy=f"overlapped/{ex.strategy}",
+                  est_peak_mb=round(ex.est_peak_bytes / 1e6, 1),
+                  budget_mb=round(ex.budget_bytes / 1e6, 1),
+                  canvas=(plan.canvas_w, plan.canvas_h))
+        if ex.strategy in ("resident", "streamed"):
+            drawn = [p for p in plan.placements
+                     if p.row_span[1] > p.row_span[0]
+                     and p.col_span[1] > p.col_span[0]]
+            try:
+                canvas = new_canvas(plan, channels, device)
+                steps = cuda_resize.plan_steps(plan, device)
+                stager = _Stager(
+                    device, max((p.raw_h * p.raw_w * channels
+                                 for p in drawn), default=1),
+                    max(1, min(3, len(drawn))),
+                    _fence_limit(plan, channels, config))
+            except Exception as e:  # noqa: BLE001 — OOM classification
+                if not _is_oom(e):
+                    raise
+                oom = e   # the canvas does not fit: decode, keep, go banded
+                canvas = steps = stager = None
+                log.event("pipeline.oom_retry", failed="overlapped-alloc",
+                          band=None)
+    t_start = planned.start_ns
     plain = config.engine == "torch"
 
     gen = decoding.iter_decoded(loaders, config.decode_threads,
                                 config.decode_timeout_s)
     done = 0
-    t_decode = 0.0
+    landed_ns = t_start
+    stage_ns = stage_max_ns = 0
     try:
-        if canvas is not None:
-            # the round trip this job pays once inside compute_s at the
-            # drain; probed after the decode pool starts, so it runs under
-            # the first decode
-            m.transport_rtt_s = _transport_rtt(device)
         for i, raw, err in gen:
             if err is not None:
                 log.event("pipeline.overlapped_decode_fail", index=i,
@@ -804,20 +801,25 @@ def _run_overlapped_body(plan, loaders, config, progress, m, ex, log,
                 raise err
             raw = _checked(i, np.asarray(raw))
             decoded[i] = raw
-            t_decode = max(t_decode, time.perf_counter() - t_start)
             p = plan.placements[i]
-            if canvas is not None and steps[i] is not None:
+            staged = canvas is not None and steps[i] is not None
+            # a checked view: a strided one is made contiguous by the copy
+            # into the pinned slot, inside stage.pin_copy
+            arr = source_array(raw, p, channels) if staged else None
+            # the source has landed; its staging starts at this reading
+            landed_ns = time.perf_counter_ns()
+            if staged:
                 try:
-                    t_stage = time.perf_counter()
-                    src = stager.upload(np.ascontiguousarray(
-                        source_array(raw, p, channels)))
-                    cuda_resize.draw_placement(src, p, steps[i], canvas,
-                                               plain)
-                    del src
-                    stager.drawn(raw.nbytes)
-                    t_stage = time.perf_counter() - t_stage
-                    m.stage_wait_s += t_stage
-                    m.stage_wait_max_s = max(m.stage_wait_max_s, t_stage)
+                    src = stager.upload(arr, landed_ns)
+                    with spans.span("draw",
+                                    start_ns=stager.enqueued_ns) as s:
+                        cuda_resize.draw_placement(src, p, steps[i], canvas,
+                                                   plain)
+                        del src
+                    with spans.span("stage.fence", start_ns=s.end_ns) as s:
+                        stager.drawn(raw.nbytes)
+                    stage_ns += s.end_ns - landed_ns
+                    stage_max_ns = max(stage_max_ns, s.end_ns - landed_ns)
                     m.h2d_bytes += raw.nbytes
                     composited[i] = True
                     decoded[i] = None   # staged: drop the host copy
@@ -831,25 +833,29 @@ def _run_overlapped_body(plan, loaders, config, progress, m, ex, log,
             done += 1
             progress("composite", 0.30 + 0.60 * done / n)
     finally:
-        # an error anywhere above (probe, decode, composite) must not leave
-        # the eagerly-started workers decoding the rest of the job
+        # an error anywhere above (decode, composite) must not leave the
+        # eagerly-started workers decoding the rest of the job
         gen.close()
-    m.prepare_s = t_decode
+    m.prepare_s = (landed_ns - t_start) / 1e9
+    m.stage_wait_s = stage_ns / 1e9
+    m.stage_wait_max_s = stage_max_ns / 1e9
 
-    t_drain = time.perf_counter()
+    t_drain = time.perf_counter_ns()
     out = None
     if canvas is not None:
         # compute_s = the device drain exposed after the last decode (work
         # that ran under decode cost no wall time)
         try:
-            _drain(device)
-            m.compute_s = time.perf_counter() - t_drain
+            with spans.span("drain", start_ns=t_drain) as s:
+                _drain(device)
+            m.compute_s = (s.end_ns - s.start_ns) / 1e9
             if keep_on_device:
                 out = canvas   # the caller streams the readback
             else:
-                t0 = time.perf_counter()
-                out = canvas.cpu().numpy()
-                m.readback_s = time.perf_counter() - t0
+                with spans.span("readback", start_ns=s.end_ns,
+                                count_pages=True) as s:
+                    out = canvas.cpu().numpy()
+                m.readback_s = (s.end_ns - s.start_ns) / 1e9
         except Exception as e:  # noqa: BLE001 — OOM classification
             if not _is_oom(e):
                 raise
@@ -894,8 +900,8 @@ def _run_overlapped_body(plan, loaders, config, progress, m, ex, log,
                 "overlapped stitch ran out of device memory on every "
                 "strategy") from oom
         m.strategy = "overlapped/banded"
-        m.compute_s = time.perf_counter() - t_drain
-    m.total_s = time.perf_counter() - t_start
+        m.compute_s = (time.perf_counter_ns() - t_drain) / 1e9
+    m.total_s = (time.perf_counter_ns() - t_start) / 1e9
     log.event("pipeline.overlapped_done", n=n, strategy=m.strategy,
               total_s=round(m.total_s, 4),
               decode_wall_s=round(m.prepare_s, 4),

@@ -26,6 +26,13 @@ set one, else ``parallel.mesh.make_mesh()`` over every card.  The memory
 cap multiplies by the jobs axis and rounds down to a multiple of it, and a
 flush pads with zero jobs up to the next multiple and drops their canvases
 (twins of ``_effective_cap``, ``_padded_batch`` and ``_batch_cap``).
+
+Spans (:mod:`..runtime.spans`): each job is a root ``serve.submit`` on the
+client's thread with a job id of its own, then a ``serve.queue`` (from its
+enqueue to its flush's start) and a ``serve.resolve`` under its flush; each
+flush is a ``serve.flush`` holding ``serve.stack`` and ``BatchedStitch``'s
+``batch.*`` spans.  The timings of :meth:`StitchServer.stats` are sums of
+the same clock readings.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ from ..config import CanvasLimits, RuntimeConfig, StitchOptions
 from ..core.layout import ImageSpec, LayoutPlan, solve
 from ..parallel.batch import ENGINES, BatchedStitch
 from ..parallel.mesh import make_mesh
-from ..runtime import tiler
+from ..runtime import spans, tiler
 from ..runtime.logger import get_logger
 from ..runtime.pipeline import resolve_device
 
@@ -61,7 +68,8 @@ class _Job:
     images: List[np.ndarray]
     plan: LayoutPlan
     future: Future
-    enqueued_at: float
+    job: int            # the span job id of its submit
+    enqueued_ns: int
 
 
 @dataclasses.dataclass
@@ -126,11 +134,12 @@ class StitchServer:
             collections.OrderedDict()
         self._log = get_logger()
         # worker-thread-only mutation.  queue_wait_* = submit -> flush
-        # start per job (what a client pays for batching); flush_s = flush
-        # wall, stacking included; stack_s = host np.stack of the slots
-        self._stats = {"jobs": 0, "batches": 0, "failed": 0, "warmups": 0,
-                       "queue_wait_s": 0.0, "queue_wait_max_s": 0.0,
-                       "flush_s": 0.0, "stack_s": 0.0}
+        # start per job (what a client pays for batching); flush = flush
+        # wall, stacking included; stack = host np.stack of the slots.
+        # Timings in ns, summed from the spans' readings; stats() gives s.
+        self._stats = {"jobs": 0, "batches": 0, "failed": 0, "warmups": 0}
+        self._ns = {"queue_wait": 0, "queue_wait_max": 0, "flush": 0,
+                    "stack": 0}
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="stitch-server")
         self._closed = False
@@ -149,6 +158,11 @@ class StitchServer:
         ``options.merge_overlap`` the duplicated strips are found (on the
         server's device) and trimmed here, in the caller's thread.
         """
+        job = spans.new_job()
+        with spans.span("serve.submit", job=job):
+            return self._submit(job, images, options, limits, orientations)
+
+    def _submit(self, job, images, options, limits, orientations) -> Future:
         if self._closed:
             raise RuntimeError("server is closed")
         options = (options or StitchOptions()).validate()
@@ -182,7 +196,8 @@ class StitchServer:
                 # between the _closed check and the enqueue
                 if self._closed:
                     raise RuntimeError("server is closed")
-                self._queue.put(_Job(imgs, plan, fut, time.perf_counter()))
+                self._queue.put(_Job(imgs, plan, fut, job,
+                                     time.perf_counter_ns()))
         except BaseException:
             self._release()
             raise
@@ -327,7 +342,9 @@ class StitchServer:
     def stats(self) -> dict:
         with self._plock:
             pending = self._pending
-        return {**self._stats, "pending": pending,
+        return {**self._stats,
+                **{f"{k}_s": v / 1e9 for k, v in self._ns.items()},
+                "pending": pending,
                 "max_queue": self.max_queue,
                 "signatures": len(self._compiled)}
 
@@ -470,30 +487,36 @@ class StitchServer:
                 self._flush_started(jobs[lo:lo + cap])
             return
         try:
-            t0 = time.perf_counter()
-            b = len(jobs)
-            padded = self._padded_batch(b)
-            stacks = []
-            for slot in range(len(plan.placements)):
-                arrs = [j.images[slot] for j in jobs]
-                # zero jobs up to a jobs-axis multiple; their canvases drop
-                arrs += [np.zeros_like(arrs[0])] * (padded - b)
-                stacks.append(np.stack(arrs))
-            t_stack = time.perf_counter() - t0
-            out = self._get_compiled(plan, padded, channels)(stacks)
+            with spans.span("serve.flush") as flush:
+                b = len(jobs)
+                padded = self._padded_batch(b)
+                with spans.span("serve.stack",
+                                start_ns=flush.start_ns) as stack:
+                    stacks = []
+                    for slot in range(len(plan.placements)):
+                        arrs = [j.images[slot] for j in jobs]
+                        # zero jobs up to a jobs-axis multiple; their
+                        # canvases drop
+                        arrs += [np.zeros_like(arrs[0])] * (padded - b)
+                        stacks.append(np.stack(arrs))
+                out = self._get_compiled(plan, padded, channels)(stacks)
             # stats before resolving: a client woken by its future sees
             # stats() that include its job.  Latency accumulates only here,
             # so the split-retry below does not count a wait twice.
-            waits = [t0 - j.enqueued_at for j in jobs]
-            self._stats["queue_wait_s"] += sum(waits)
-            self._stats["queue_wait_max_s"] = max(
-                self._stats["queue_wait_max_s"], max(waits))
-            self._stats["flush_s"] += time.perf_counter() - t0
-            self._stats["stack_s"] += t_stack
+            for j in jobs:
+                spans.record("serve.queue", j.enqueued_ns, flush.start_ns,
+                             job=j.job, parent=flush.id)
+            waits = [flush.start_ns - j.enqueued_ns for j in jobs]
+            ns = self._ns
+            ns["queue_wait"] += sum(waits)
+            ns["queue_wait_max"] = max(ns["queue_wait_max"], max(waits))
+            ns["flush"] += flush.end_ns - flush.start_ns
+            ns["stack"] += stack.end_ns - stack.start_ns
             self._stats["jobs"] += b
             self._stats["batches"] += 1
             for i, j in enumerate(jobs):
-                self._resolve(j, value=out[i])
+                with spans.span("serve.resolve", job=j.job, parent=flush.id):
+                    self._resolve(j, value=out[i])
             self._log.event("serve.flush", batch=b,
                             canvas=(plan.canvas_w, plan.canvas_h))
         except Exception as e:  # noqa: BLE001 — isolation boundary
@@ -501,7 +524,9 @@ class StitchServer:
             # batch-mates
             if len(jobs) == 1:
                 self._stats["failed"] += 1       # before resolve (see above)
-                self._resolve(jobs[0], error=e)
+                with spans.span("serve.resolve", job=jobs[0].job,
+                                parent=flush.id):
+                    self._resolve(jobs[0], error=e)
                 self._log.event("serve.job_fail", error=repr(e))
                 return
             self._log.event("serve.batch_fail_retry_split", n=len(jobs),

@@ -1,0 +1,327 @@
+"""The port's spans (``runtime/spans.py``) on the CPU: the records of an
+overlapped ``stitch`` and of a ``StitchServer`` flush, the totals that are
+sums of the same readings, the profiler ranges, the spans of a job that
+raises, and the ring's drop report, alone and under contention."""
+
+import mmap
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from imagestitching_tpu_torch import RuntimeConfig, StitchOptions, api
+from imagestitching_tpu_torch.runtime import pipeline, spans
+from imagestitching_tpu_torch.serve.server import StitchServer
+
+CPU = RuntimeConfig(device="cpu")
+T = 10                                  # seconds any future may take
+# BASELINE config 3's orientations on nine small sources: an overlapped
+# job (nine images) with resampled placements
+_SHAPES = [(240, 135, 1), (135, 240, 6), (180, 135, 3), (160, 120, 8),
+           (250, 187, 1), (135, 135, 5), (200, 150, 2), (150, 200, 7),
+           (240, 180, 4)]
+_OPTS = StitchOptions(direction="horizontal", mode="min", gap=4,
+                      max_images=None)
+_STAGE = ("stage.slot_wait", "stage.pin_copy", "stage.enqueue", "draw",
+          "stage.fence")
+
+
+def _items(seed=3):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 256, (h, w, 3), np.uint8), o)
+            for w, h, o in _SHAPES]
+
+
+def _window(fn):
+    """``fn()``'s result and the records that meet its interval."""
+    t0 = time.perf_counter_ns()
+    out = fn()
+    records, dropped = spans.snapshot(t0, time.perf_counter_ns())
+    assert not dropped
+    return out, records
+
+
+def _job_spans(records):
+    """The ``stitch`` root this thread recorded, and its job's other
+    spans."""
+    me = threading.get_ident()
+    roots = [r for r in records if r.name == "stitch" and r.thread == me]
+    assert len(roots) == 1
+    root = roots[0]
+    return root, [r for r in records
+                  if r.job == root.job and r.span != root.span]
+
+
+def _ns(records, *names):
+    return sum(r.end_ns - r.start_ns for r in records if r.name in names)
+
+
+def _stitch():
+    return api.stitch(_items(), options=_OPTS, config=CPU,
+                      return_metrics=True)
+
+
+def test_overlapped_stitch_records_its_phases_under_one_root():
+    (_, m), records = _window(_stitch)
+    assert m.strategy == "overlapped"
+    root, kids = _job_spans(records)
+    assert root.parent == 0
+    names = [r.name for r in kids]
+    assert {n: names.count(n) for n in set(names)} == {
+        "plan": 1, "decode": 9, **{n: 9 for n in _STAGE}, "drain": 1,
+        "readback": 1}
+    assert all(r.parent == root.span for r in kids)
+    assert all(root.start_ns <= r.start_ns <= r.end_ns <= root.end_ns
+               for r in kids)
+    # decodes run on the pool's threads, the rest on the caller's
+    assert all(r.thread != root.thread for r in kids if r.name == "decode")
+    assert all(r.thread == root.thread for r in kids if r.name != "decode")
+    # the readback alone counts: the pages it made resident
+    (readback,) = [r for r in kids if r.counts]
+    assert readback.name == "readback" and set(readback.counts) == {
+        "new_pages"}
+    assert root.counts is None
+
+
+def test_strided_sources_are_staged_as_their_contiguous_copies():
+    """A caller's strided view goes into the pinned slot as it is (the copy
+    into the slot makes it contiguous) and gives the same canvas."""
+    views = [(np.concatenate([a, a], axis=1)[:, ::2], o)
+             for a, o in _items()]
+    assert not any(v.flags.c_contiguous for v, _ in views)
+    got, m = api.stitch(views, options=_OPTS, config=CPU,
+                        return_metrics=True)
+    want = api.stitch([(np.ascontiguousarray(v), o) for v, o in views],
+                      options=_OPTS, config=CPU)
+    assert m.strategy == "overlapped"
+    np.testing.assert_array_equal(got, want)
+
+
+def test_overlapped_metrics_are_sums_of_the_spans():
+    """Staging spans follow each other at one reading a boundary, so the
+    totals equal the spans' sums exactly."""
+    (_, m), records = _window(_stitch)
+    root, kids = _job_spans(records)
+    assert m.stage_wait_s == _ns(kids, *_STAGE) / 1e9
+    assert m.readback_s == _ns(kids, "readback") / 1e9
+    assert m.compute_s == _ns(kids, "drain") / 1e9
+    per_source = [r.end_ns for r in kids if r.name == "stage.fence"]
+    starts = [r.start_ns for r in kids if r.name == "stage.slot_wait"]
+    assert m.stage_wait_max_s == max(
+        b - a for a, b in zip(starts, per_source)) / 1e9
+    (plan,) = [r for r in kids if r.name == "plan"]
+    assert m.prepare_s == (max(starts) - plan.start_ns) / 1e9
+    assert m.transport_rtt_s == 0
+    for name in _STAGE[1:]:
+        # each staging span starts at the reading that closed the one before
+        assert ({r.start_ns for r in kids if r.name == name}
+                <= {r.end_ns for r in kids})
+
+
+def test_demoted_job_takes_the_banded_span(monkeypatch):
+    def no_canvas(*a, **k):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory (simulated)")
+
+    monkeypatch.setattr(pipeline, "new_canvas", no_canvas)
+    (_, m), records = _window(_stitch)
+    assert m.strategy == "overlapped/banded"
+    root, kids = _job_spans(records)
+    names = {r.name for r in kids}
+    assert "banded" in names and not names & set(_STAGE)
+    (banded,) = [r for r in kids if r.name == "banded"]
+    assert banded.parent == root.span
+
+
+def _serve(n_jobs=6, **kw):
+    imgs = [a for a, _ in _items()]
+    with StitchServer(max_batch=8, max_wait_s=0.05, config=CPU, **kw) as s:
+        before = s.stats()
+        t0 = time.perf_counter_ns()
+        futs = [s.submit(imgs, _OPTS) for _ in range(n_jobs)]
+        for f in futs:
+            f.result(timeout=T)
+        records, dropped = spans.snapshot(t0, time.perf_counter_ns())
+        after = s.stats()
+        worker = s._thread.ident
+    assert not dropped
+    return before, after, [r for r in records if r.thread == worker
+                           or r.name == "serve.submit"]
+
+
+def test_server_flush_and_jobs_record_their_spans():
+    _, after, records = _serve()
+    flushes = {r.span: r for r in records if r.name == "serve.flush"}
+    assert len(flushes) == after["batches"] >= 1
+    for f in flushes.values():
+        kids = [r for r in records if r.parent == f.span]
+        names = [r.name for r in kids if not r.name.startswith("serve.q")
+                 and r.name != "serve.resolve"]
+        assert names == ["serve.stack", "batch.h2d", "batch.draw",
+                         "batch.sync", "batch.readback"]
+        names = set(names)
+        assert all(f.start_ns <= r.start_ns <= r.end_ns <= f.end_ns
+                   for r in kids if r.name in names)
+        (stack,) = [r for r in kids if r.name == "serve.stack"]
+        assert stack.start_ns == f.start_ns
+    # no server span counts anything: nothing would read it
+    assert all(r.counts is None for r in records)
+    submits = [r for r in records if r.name == "serve.submit"]
+    assert len(submits) == 6 and all(r.parent == 0 for r in submits)
+    assert len({r.job for r in submits}) == 6
+    for name in ("serve.queue", "serve.resolve"):
+        per_job = [r for r in records if r.name == name]
+        assert sorted(r.job for r in per_job) == sorted(r.job
+                                                        for r in submits)
+        assert all(r.parent in flushes for r in per_job)
+    for q in (r for r in records if r.name == "serve.queue"):
+        assert q.end_ns == flushes[q.parent].start_ns
+
+
+@pytest.mark.parametrize("stat,name", [("stack_s", "serve.stack"),
+                                       ("flush_s", "serve.flush"),
+                                       ("queue_wait_s", "serve.queue")])
+def test_server_stats_are_sums_of_the_spans(stat, name):
+    before, after, records = _serve()
+    assert before[stat] == 0.0
+    assert after[stat] == _ns(records, name) / 1e9
+
+
+def test_profiler_sees_a_main_thread_span():
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with spans.span("test.profiled"):
+            torch.ones(4).sum()
+    assert "test.profiled" in {e.name for e in prof.events()}
+
+
+def test_spans_need_the_private_range_class_only_under_a_profiler(
+        monkeypatch):
+    """Without ``_RecordFunctionFast`` spans still record; under a profiler
+    a span says what is missing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.delattr(torch._C._profiler, "_RecordFunctionFast")
+    with spans.span("test.plain") as s:
+        pass
+    assert s.end_ns >= s.start_ns
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(RuntimeError, match="_RecordFunctionFast"):
+            with spans.span("test.profiled"):
+                pass
+    assert spans.current() == (0, 0)
+
+
+def test_no_range_without_a_profiler(monkeypatch):
+    opened = []
+    monkeypatch.setattr(spans, "_profiler_range",
+                        lambda name: opened.append(name))
+    _window(_stitch)
+    _serve(n_jobs=2)
+    assert opened == []
+
+
+def _drain_fault(monkeypatch):
+    def drain(device):
+        raise ValueError("device fault (simulated)")
+
+    monkeypatch.setattr(pipeline, "_drain", drain)
+    with pytest.raises(ValueError, match="simulated"):
+        _stitch()
+    return "stitch", {"plan", "decode", *_STAGE, "drain"}
+
+
+def _flush_fault(monkeypatch):
+    def fail(self, stacks):
+        raise ValueError("batch fault (simulated)")
+
+    monkeypatch.setattr(StitchServer, "_get_compiled",
+                        lambda self, *a: fail.__get__(self))
+    with StitchServer(max_batch=8, config=CPU) as s:
+        fut = s.submit([a for a, _ in _items()], _OPTS)
+        with pytest.raises(ValueError, match="simulated"):
+            fut.result(timeout=T)
+    return "serve.flush", {"serve.stack"}
+
+
+@pytest.mark.parametrize("fault", [_drain_fault, _flush_fault])
+def test_a_job_that_raises_closes_its_spans(fault, monkeypatch):
+    t0 = time.perf_counter_ns()
+    outer, inner = fault(monkeypatch)
+    records, _ = spans.snapshot(t0, time.perf_counter_ns())
+    (top,) = [r for r in records if r.name == outer]
+    assert {r.name for r in records if r.parent == top.span} >= inner
+    assert spans.current() == (0, 0)
+
+
+def test_count_pages_counts_the_pages_first_touched():
+    n = 16 << 20
+    buf = mmap.mmap(-1, n)       # fresh pages, not memory the heap reuses
+    a = np.frombuffer(buf, np.uint8)
+    t0 = time.perf_counter_ns()
+    with spans.span("test.touch", count_pages=True):
+        a[:] = 1
+    with spans.span("test.touch", count_pages=True):
+        a[:] = 2
+    with spans.span("test.plain"):
+        pass
+    del a
+    buf.close()
+    records, _ = spans.snapshot(t0, time.perf_counter_ns())
+    fresh, again, plain = [r for r in records if r.name.startswith("test.")
+                           and r.thread == threading.get_ident()]
+    assert fresh.counts["new_pages"] >= 0.9 * n / 4096
+    assert abs(again.counts["new_pages"]) < 0.1 * n / 4096
+    assert plain.counts is None
+
+
+def test_overfilled_ring_reports_the_drop(monkeypatch):
+    monkeypatch.setattr(spans, "RING", spans.Ring(8, 2))
+    marks = []
+    for _ in range(20):
+        with spans.span("test.fill") as s:
+            pass
+        marks.append((s.start_ns, s.end_ns))
+    held, dropped = spans.snapshot(*marks[0])
+    assert dropped and held == []
+    held, dropped = spans.snapshot(marks[-1][0], marks[-1][1])
+    assert not dropped and [r.span for r in held] == [s.id]
+    seqs = [r.seq for r in spans.RING.snapshot(0, marks[-1][1])[0]]
+    assert seqs == sorted(seqs) and seqs[-1] == 19 and len(seqs) <= 8
+
+
+def test_ring_reports_every_drop_under_contention(monkeypatch):
+    """More threads than cores, a short switch interval and a small ring:
+    every span missing from a snapshot of its own interval is reported as
+    dropped, and no two records share a sequence number."""
+    monkeypatch.setattr(spans, "RING", spans.Ring(64, 16))
+    n_threads, n_spans = 16, 300
+    done = [[] for _ in range(n_threads)]
+
+    def work(k):
+        for _ in range(n_spans):
+            with spans.span("test.stress", job=k + 1) as s:
+                pass
+            done[k].append((s.id, s.start_ns, s.end_ns))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k,))
+                   for k in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert sum(map(len, done)) == n_threads * n_spans
+    held, _ = spans.RING.snapshot(0, time.perf_counter_ns())
+    assert len({r.seq for r in held}) == len(held) <= 64
+    for span_id, a, b in (x for d in done for x in d):
+        got, dropped = spans.RING.snapshot(a, b)
+        assert dropped or span_id in {r.span for r in got}
