@@ -37,8 +37,9 @@ resident and streamed rungs; an OOM demotes it to the banded rung.
 Each phase is a span (:mod:`.spans`): ``plan``; per staged source
 ``stage.slot_wait``, ``stage.pin_copy``, ``stage.enqueue``, ``draw`` and
 ``stage.fence``, back to back; ``drain``; ``readback`` with the pages it
-made resident; and ``streamed`` / ``banded`` at those rungs' entries.  ``StitchMetrics``' overlapped timings are sums of the same clock
-readings.
+made resident and the blocks by which torch's pinned-host pool grew; and
+``streamed`` / ``banded`` at those rungs' entries.  ``StitchMetrics``'
+overlapped timings are sums of the same clock readings.
 """
 
 from __future__ import annotations
@@ -87,8 +88,11 @@ class StitchMetrics:
     hold the host back, and the maximum tells one slow source from a slow
     link.  There ``prepare_s`` is the decode wall, ``compute_s`` the
     ``drain`` span (the device work exposed after the last decode) and
-    ``readback_s`` the ``readback`` span.  ``transport_rtt_s`` stays 0 (the
-    field is the JAX package's)."""
+    ``readback_s`` the ``readback`` span.  On every path ``readback_s``
+    times the copy of the device canvas into host memory, for a CUDA canvas
+    into a block of torch's pinned-host cache (:func:`_read_back`), which
+    goes back to that cache, not to the OS, when the caller frees the
+    array.  ``transport_rtt_s`` stays 0 (the field is the JAX package's)."""
 
     strategy: str = "resident"
     prepare_s: float = 0.0
@@ -126,6 +130,29 @@ _OOM_PHRASES = ("resource_exhausted", "out of memory", "ran out of memory",
                 "cannot allocate", "could not allocate", "memory exhausted",
                 "exceeds the memory capacity", "insufficient memory",
                 "oom while")
+
+
+def _read_back(canvas: torch.Tensor) -> Tuple[np.ndarray, int]:
+    """The canvas as a host array, and the blocks by which torch's
+    pinned-host pool grew to hold it (its ``num_host_alloc``, counted over
+    the whole process).
+
+    A CUDA canvas is copied, blocking, into a tensor from PyTorch's caching
+    pinned-host allocator, and the array is that tensor's numpy view: its
+    ``base`` keeps the tensor, and once the caller drops the array the
+    block (rounded up to a power of two) returns to torch's cache, so the
+    next canvas of that size lands in pages already resident and locked.
+    Each canvas a caller holds keeps its own block; pinned memory is not
+    swappable, and ``torch._C._host_emptyCache()`` hands the cached blocks
+    back to the OS.  A CPU canvas is ``canvas.cpu().numpy()`` and the count
+    is 0."""
+    if canvas.device.type != "cuda":
+        return canvas.cpu().numpy(), 0
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    host = torch.empty(canvas.shape, dtype=canvas.dtype, pin_memory=True)
+    host.copy_(canvas)
+    return (host.numpy(),
+            torch.cuda.host_memory_stats()["num_host_alloc"] - allocs)
 
 
 def _is_oom(e: BaseException) -> bool:
@@ -408,11 +435,11 @@ def run(plan: LayoutPlan, images: Sequence[np.ndarray],
         ) -> Tuple[Union[np.ndarray, torch.Tensor], StitchMetrics]:
     """Execute one solved stitch job under the configured memory budget.
 
-    Returns ``(canvas, metrics)``: a uint8 HWC numpy array, or with
-    ``keep_on_device=True`` the canvas tensor on the configured device when
-    the winning strategy holds it there (resident, streamed); the banded
-    and space-sharded strategies and the host engines return numpy either
-    way.
+    Returns ``(canvas, metrics)``: a uint8 HWC numpy array (a device canvas
+    read back by :func:`_read_back`), or with ``keep_on_device=True`` the
+    canvas tensor on the configured device when the winning strategy holds
+    it there (resident, streamed); the banded and space-sharded strategies
+    and the host engines return numpy either way.
     """
     config = (config or RuntimeConfig()).validate()
     log = get_logger()
@@ -495,7 +522,7 @@ def run(plan: LayoutPlan, images: Sequence[np.ndarray],
     m.compute_s = time.perf_counter() - t0
     if isinstance(out, torch.Tensor) and not keep_on_device:
         t1 = time.perf_counter()
-        out = out.cpu().numpy()
+        out, _ = _read_back(out)
         m.readback_s = time.perf_counter() - t1
     m.total_s = time.perf_counter() - t_start
     # m.strategy names the rung that won, after any demotion
@@ -712,7 +739,10 @@ def run_overlapped(plan: LayoutPlan, loaders, config: RuntimeConfig,
 
     Raises on any decode failure (including the watchdog's TimeoutError):
     by stitch time geometry is committed, the reference aborts there too
-    (index.js:1507-1509).  Returns ``(canvas, metrics)``; with
+    (index.js:1507-1509).  Returns ``(canvas, metrics)``: a uint8 HWC
+    numpy array, for a canvas on a CUDA device the view of a block of
+    torch's pinned-host cache (:func:`_read_back`), which the cache keeps
+    for the next canvas once the caller frees the array; with
     ``keep_on_device=True`` the canvas stays a tensor where the card holds
     it.
     """
@@ -854,7 +884,8 @@ def _run_overlapped_body(plan, loaders, config, progress, device,
             else:
                 with spans.span("readback", start_ns=s.end_ns,
                                 count_pages=True) as s:
-                    out = canvas.cpu().numpy()
+                    out, pinned_new = _read_back(canvas)
+                    s.counts = {"pinned_new": pinned_new}
                 m.readback_s = (s.end_ns - s.start_ns) / 1e9
         except Exception as e:  # noqa: BLE001 — OOM classification
             if not _is_oom(e):

@@ -3,10 +3,10 @@
 A span is one named interval of work on one thread: its name, the job it
 belongs to, its own id, its parent's id (0 for a root), the thread that
 recorded it, its start and end in ``time.perf_counter_ns()`` and an
-optional small dict of counts (the pages a readback made resident).  The
-clock is the one that ``stitchbench``'s device trace is anchored to, so
-program spans line up with the kernels and copies of a ``torch.profiler``
-trace.
+optional small dict of counts (the pages a readback made resident, the
+pinned blocks it allocated).  The clock is the one that ``stitchbench``'s
+device trace is anchored to, so program spans line up with the kernels and
+copies of a ``torch.profiler`` trace.
 
 Recording is always on: a span costs two clock reads and one append, with
 no lock (``deque.append`` is atomic), into :data:`RING`.  Where a phase
@@ -161,11 +161,11 @@ class span:
     ``parent`` is given too.  ``start_ns`` starts it at a reading already
     taken (the end of the phase before).  With ``count_pages`` its record
     counts ``new_pages``, the growth of the process's resident pages over
-    the span (:func:`resident_pages`).  A span closes on every exit
-    path."""
+    the span (:func:`resident_pages`), beside any counts the body set in
+    ``counts``.  A span closes on every exit path."""
 
     __slots__ = ("name", "job", "parent", "id", "start_ns", "end_ns",
-                 "_outer", "_range", "_count_pages", "_pages")
+                 "counts", "_outer", "_range", "_count_pages", "_pages")
 
     def __init__(self, name: str, *, job: Optional[int] = None,
                  parent: Optional[int] = None,
@@ -173,6 +173,7 @@ class span:
         self.name = name
         self.job, self.parent, self.start_ns = job, parent, start_ns
         self.end_ns: Optional[int] = None
+        self.counts: Optional[Dict[str, int]] = None
         self._count_pages = count_pages
 
     def __enter__(self) -> "span":
@@ -198,11 +199,11 @@ class span:
         self.end_ns = perf_counter_ns()
         if self._range is not None:
             self._range.__exit__(None, None, None)
-        counts = None
+        counts = self.counts
         if self._pages is not None:
             pages = resident_pages()
             if pages is not None:
-                counts = {"new_pages": pages - self._pages}
+                counts = {**(counts or {}), "new_pages": pages - self._pages}
         _current.ctx = self._outer
         RING.append(self.name, self.job, self.id, self.parent,
                     self.start_ns, self.end_ns, counts)

@@ -1,8 +1,16 @@
 """The port's spans (``runtime/spans.py``) on the CPU: the records of an
 overlapped ``stitch`` and of a ``StitchServer`` flush, the totals that are
 sums of the same readings, the profiler ranges, the spans of a job that
-raises, and the ring's drop report, alone and under contention."""
+raises, and the ring's drop report, alone and under contention; and the
+canvas readback that the ``readback`` span times (``pipeline._read_back``).
 
+The readback into pinned host memory exists only for a CUDA canvas, so its
+test is marked ``cuda`` and skips without a card.  On a CUDA host:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_spans.py -q
+"""
+
+import gc
 import mmap
 import sys
 import threading
@@ -13,6 +21,7 @@ import pytest
 import torch
 
 from imagestitching_tpu_torch import RuntimeConfig, StitchOptions, api
+from imagestitching_tpu_torch.core.layout import ImageSpec, solve
 from imagestitching_tpu_torch.runtime import pipeline, spans
 from imagestitching_tpu_torch.serve.server import StitchServer
 
@@ -79,10 +88,12 @@ def test_overlapped_stitch_records_its_phases_under_one_root():
     # decodes run on the pool's threads, the rest on the caller's
     assert all(r.thread != root.thread for r in kids if r.name == "decode")
     assert all(r.thread == root.thread for r in kids if r.name != "decode")
-    # the readback alone counts: the pages it made resident
+    # the readback alone counts: the pages it made resident, and the blocks
+    # by which the pinned-host pool grew (none for a CPU canvas)
     (readback,) = [r for r in kids if r.counts]
     assert readback.name == "readback" and set(readback.counts) == {
-        "new_pages"}
+        "new_pages", "pinned_new"}
+    assert readback.counts["pinned_new"] == 0
     assert root.counts is None
 
 
@@ -276,6 +287,92 @@ def test_count_pages_counts_the_pages_first_touched():
     assert fresh.counts["new_pages"] >= 0.9 * n / 4096
     assert abs(again.counts["new_pages"]) < 0.1 * n / 4096
     assert plain.counts is None
+
+
+@pytest.mark.parametrize("count_pages", [False, True])
+def test_a_body_s_counts_sit_beside_new_pages(count_pages):
+    t0 = time.perf_counter_ns()
+    with spans.span("test.counts", count_pages=count_pages) as s:
+        s.counts = {"pinned_new": 1}
+    (r,) = [r for r in spans.snapshot(t0, time.perf_counter_ns())[0]
+            if r.span == s.id]
+    assert r.counts["pinned_new"] == 1
+    assert set(r.counts) == ({"pinned_new", "new_pages"} if count_pages
+                             else {"pinned_new"})
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 3), (4, 6, 1), (3, 2, 4)])
+def test_a_cpu_canvas_reads_back_unpinned(shape, monkeypatch):
+    """``.cpu().numpy()``: the canvas's bytes as a writable C-contiguous
+    uint8 array that outlives the tensor, with no pinned memory asked
+    for and no pinned block counted."""
+    asked = []
+    empty = torch.empty
+
+    def spy(*a, **k):
+        asked.append(bool(k.get("pin_memory")))
+        return empty(*a, **k)
+
+    monkeypatch.setattr(torch, "empty", spy)
+    canvas = torch.randint(0, 256, shape, dtype=torch.uint8)
+    want = canvas.numpy().copy()
+    out, pinned_new = pipeline._read_back(canvas)
+    del canvas
+    gc.collect()
+    assert pinned_new == 0 and not any(asked)
+    assert out.dtype == np.uint8 and out.shape == shape
+    assert out.flags.c_contiguous and out.flags.writeable
+    np.testing.assert_array_equal(out, want)
+
+
+def _cuda_job(entry, keep_on_device=False):
+    """One job of :func:`_items` on the card through ``pipeline.run`` or
+    ``pipeline.run_overlapped``, and the records of its interval."""
+    items = _items()
+    plan = solve([ImageSpec(a.shape[1], a.shape[0], o) for a, o in items],
+                 _OPTS)
+    cfg = RuntimeConfig(device="cuda")
+    imgs = [a for a, _ in items]
+    if entry == "run":
+        return _window(lambda: pipeline.run(plan, imgs, cfg,
+                                            keep_on_device=keep_on_device))
+    return _window(lambda: pipeline.run_overlapped(
+        plan, [(lambda a=a: a) for a in imgs], cfg,
+        keep_on_device=keep_on_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["run_overlapped", "run"])
+def test_cuda_readback_reuses_one_pinned_block(entry):
+    """Two jobs of one shape, the first canvas dropped in between: both
+    land in pinned host memory, the second in the block the first gave
+    back (the pool does not grow), and the bytes equal the pageable
+    readback of the same device canvas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a CPU canvas is never pinned")
+    (first, _), _ = _cuda_job(entry)
+    assert first.base.is_pinned()
+    del first
+    gc.collect()
+    before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    (out, m), records = _cuda_job(entry)
+    after = torch.cuda.host_memory_stats()["num_host_alloc"]
+    assert after == before
+    assert out.base.is_pinned()
+    assert out.flags.c_contiguous and out.flags.writeable
+    if entry == "run_overlapped":
+        (readback,) = [r for r in records if r.name == "readback"
+                       and r.thread == threading.get_ident()]
+        assert readback.counts["pinned_new"] == 0
+    (canvas, _), _ = _cuda_job(entry, keep_on_device=True)
+    assert isinstance(canvas, torch.Tensor) and canvas.is_cuda
+    pageable = canvas.cpu().numpy()
+    pinned, _ = pipeline._read_back(canvas)
+    np.testing.assert_array_equal(pinned, pageable)
+    np.testing.assert_array_equal(out, pageable)
+    print(f"{entry}: {m.strategy}, canvas {out.shape}, readback "
+          f"{m.readback_s * 1e3:.3f} ms, num_host_alloc over the second "
+          f"job {before} -> {after}")
 
 
 def test_overfilled_ring_reports_the_drop(monkeypatch):
