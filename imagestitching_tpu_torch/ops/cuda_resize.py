@@ -674,17 +674,20 @@ def _stack_tensors(plan: LayoutPlan, stacks: Sequence,
 def stitch_batch(plan: LayoutPlan, stacks: Sequence, device,
                  plain: bool = False,
                  steps: Optional[Sequence[Optional[_Step]]] = None,
-                 ) -> torch.Tensor:
+                 card: int = 0) -> torch.Tensor:
     """B jobs of one plan on ``device``: ``stacks[i]`` is image slot i's
     ``(B, H_i, W_i, C)`` uint8 stack (numpy or tensor); returns the
     ``(B, canvas_h, canvas_w, C)`` uint8 canvas tensor.  One kernel launch
     per resampled placement for the whole batch.  ``steps`` (from
     :func:`plan_steps`) lets a caller hold its taps; work is enqueued on the
-    current stream and the caller synchronises."""
+    current stream and the caller synchronises.  ``card``, the batch's
+    index on a mesh's ``jobs`` axis, is counted on its spans."""
     device = torch.device(device)
     with spans.span("batch.h2d") as s:
+        s.counts = {"card": card}
         srcs = _stack_tensors(plan, stacks, device)
-    with spans.span("batch.draw", start_ns=s.end_ns):
+    with spans.span("batch.draw", start_ns=s.end_ns) as draw:
+        draw.counts = {"card": card}
         canvas = new_canvas(plan, srcs[0].shape[3], device,
                             (srcs[0].shape[0],))
         _compose(plan, srcs, canvas,

@@ -27,12 +27,14 @@ twin.
 A call is timed as spans (:mod:`..runtime.spans`): per shard ``batch.h2d``
 (the upload of its stacks) and ``batch.draw`` (the enqueue of its canvas
 and placements), then per device ``batch.sync`` (the wait for the kernels)
-and per shard ``batch.readback`` (the copy into the host array).
+and per shard ``batch.readback`` (the copy into the host array).  Each
+carries the count ``card``: the shard's index on the ``jobs`` axis (0
+without a mesh); a device's ``batch.sync`` carries its first shard's.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,30 +77,41 @@ class BatchedStitch:
         self.batch_size = batch_size
         self.channels = channels
         self.engine = engine
+        # each distinct device, in shard order, with its first shard's index
+        self._first_card: Dict[torch.device, int] = {}
+        for k, (d, _) in enumerate(self.shards):
+            self._first_card.setdefault(d, k)
         self._steps = {d: cuda_resize.plan_steps(plan, d)
-                       for d, _ in self.shards}
+                       for d in self._first_card}
 
-    def _shard(self, device: torch.device, stacks: Sequence) -> torch.Tensor:
+    @property
+    def cards(self) -> int:
+        """The distinct devices among the shards: the jobs axis on distinct
+        cards, 1 on a mesh that repeats one device."""
+        return len(self._first_card)
+
+    def _shard(self, card: int, stacks: Sequence) -> torch.Tensor:
+        device = self.shards[card][0]
         return cuda_resize.stitch_batch(self.plan, stacks, device,
                                         plain=self.engine == "torch",
-                                        steps=self._steps[device])
+                                        steps=self._steps[device], card=card)
 
     def run_shards(self, stacks: Sequence) -> List[torch.Tensor]:
         """Enqueue every jobs shard: the ``(b, canvas_h, canvas_w, C)``
         canvas tensor of each, on its own device, in shard order.  The
         caller synchronises."""
-        return [self._shard(d, [s[lo:hi] for s in stacks])
-                for d, (lo, hi) in self.shards]
+        return [self._shard(k, [s[lo:hi] for s in stacks])
+                for k, (_, (lo, hi)) in enumerate(self.shards)]
 
     def warm(self) -> None:
         """Run once on zero inputs made on each shard's device, then fetch
         one element of each: no host-to-device staging of B copies of every
         input and no full-canvas readback."""
-        outs = [self._shard(d, [torch.zeros((hi - lo, p.raw_h, p.raw_w,
+        outs = [self._shard(k, [torch.zeros((hi - lo, p.raw_h, p.raw_w,
                                              self.channels),
                                             dtype=torch.uint8, device=d)
                                 for p in self.plan.placements])
-                for d, (lo, hi) in self.shards]
+                for k, (d, (lo, hi)) in enumerate(self.shards)]
         for out in outs:
             out[:1, :1, :1, :1].cpu()
 
@@ -114,14 +127,16 @@ class BatchedStitch:
                     f"slot {p.index}: expected (B={self.batch_size}, H, W, C),"
                     f" got {shape}")
         outs = self.run_shards(stacked_images)
-        for d in dict.fromkeys(d for d, _ in self.shards):
-            with spans.span("batch.sync"):
+        for d, card in self._first_card.items():
+            with spans.span("batch.sync") as s:
+                s.counts = {"card": card}
                 if d.type == "cuda":
                     # a kernel fault surfaces here, inside the caller's flush
                     torch.cuda.synchronize(d)
         host = np.empty((self.batch_size, *outs[0].shape[1:]), np.uint8)
-        for (_, (lo, hi)), out in zip(self.shards, outs):
-            with spans.span("batch.readback"):
+        for card, ((_, (lo, hi)), out) in enumerate(zip(self.shards, outs)):
+            with spans.span("batch.readback") as s:
+                s.counts = {"card": card}
                 torch.from_numpy(host[lo:hi]).copy_(out)
         return host
 

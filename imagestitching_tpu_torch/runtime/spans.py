@@ -4,7 +4,7 @@ A span is one named interval of work on one thread: its name, the job it
 belongs to, its own id, its parent's id (0 for a root), the thread that
 recorded it, its start and end in ``time.perf_counter_ns()`` and an
 optional small dict of counts (the pages a readback made resident, the
-pinned blocks it allocated).  The clock is the one that ``stitchbench``'s
+pinned blocks it allocated, a flush's jobs and cards).  The clock is the one that ``stitchbench``'s
 device trace is anchored to, so program spans line up with the kernels and
 copies of a ``torch.profiler`` trace.
 

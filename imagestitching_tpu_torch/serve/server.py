@@ -31,8 +31,10 @@ Spans (:mod:`..runtime.spans`): each job is a root ``serve.submit`` on the
 client's thread with a job id of its own, then a ``serve.queue`` (from its
 enqueue to its flush's start) and a ``serve.resolve`` under its flush; each
 flush is a ``serve.flush`` holding ``serve.stack`` and ``BatchedStitch``'s
-``batch.*`` spans.  The timings of :meth:`StitchServer.stats` are sums of
-the same clock readings.
+``batch.*`` spans.  A flush that ran counts ``jobs`` (its real jobs),
+``pad_jobs`` (the zero jobs it padded with) and ``cards`` (the distinct
+devices its shards ran on).  The timings of :meth:`StitchServer.stats` are
+sums of the same clock readings.
 """
 
 from __future__ import annotations
@@ -499,7 +501,10 @@ class StitchServer:
                         # canvases drop
                         arrs += [np.zeros_like(arrs[0])] * (padded - b)
                         stacks.append(np.stack(arrs))
-                out = self._get_compiled(plan, padded, channels)(stacks)
+                stitcher = self._get_compiled(plan, padded, channels)
+                out = stitcher(stacks)
+                flush.counts = {"jobs": b, "pad_jobs": padded - b,
+                                "cards": stitcher.cards}
             # stats before resolving: a client woken by its future sees
             # stats() that include its job.  Latency accumulates only here,
             # so the split-retry below does not count a wait twice.

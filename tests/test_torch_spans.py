@@ -36,6 +36,7 @@ _OPTS = StitchOptions(direction="horizontal", mode="min", gap=4,
                       max_images=None)
 _STAGE = ("stage.slot_wait", "stage.pin_copy", "stage.enqueue", "draw",
           "stage.fence")
+_BATCH = ("batch.h2d", "batch.draw", "batch.sync", "batch.readback")
 
 
 def _items(seed=3):
@@ -177,8 +178,15 @@ def test_server_flush_and_jobs_record_their_spans():
                    for r in kids if r.name in names)
         (stack,) = [r for r in kids if r.name == "serve.stack"]
         assert stack.start_ns == f.start_ns
-    # no server span counts anything: nothing would read it
-    assert all(r.counts is None for r in records)
+    # a one-device flush counts its jobs, no padding and one card, and its
+    # batch spans count card 0; no other server span counts anything
+    assert sum(f.counts["jobs"] for f in flushes.values()) == 6
+    assert all(f.counts == {"jobs": f.counts["jobs"], "pad_jobs": 0,
+                            "cards": 1} for f in flushes.values())
+    assert all(r.counts == {"card": 0} for r in records
+               if r.name.startswith("batch."))
+    assert all(r.counts is None for r in records
+               if r.name not in ("serve.flush", *_BATCH))
     submits = [r for r in records if r.name == "serve.submit"]
     assert len(submits) == 6 and all(r.parent == 0 for r in submits)
     assert len({r.job for r in submits}) == 6
