@@ -642,50 +642,105 @@ def stitch(plan: LayoutPlan, images: Sequence[np.ndarray], device,
     return canvas
 
 
-def _stack_tensors(plan: LayoutPlan, stacks: Sequence,
-                  device: torch.device) -> List[torch.Tensor]:
-    """Slot stacks (numpy arrays or tensors, slot i ``(B, H_i, W_i, C)``
-    uint8) as contiguous tensors on ``device``, checked against the plan
-    (the JAX ``BatchedStitch.__call__``'s checks and messages)."""
+def _check_rows(p: Placement, hwc: Sequence[int], dtype: torch.dtype,
+                channels: int, where: str) -> None:
+    """A slot's ``(H, W, C)`` rows against the plan and the batch's
+    channels (the JAX ``BatchedStitch.__call__``'s checks and messages)."""
+    if tuple(hwc[:2]) != (p.raw_h, p.raw_w):
+        raise ValueError(f"{where}: got {hwc[1]}x{hwc[0]}, "
+                         f"plan says {p.raw_w}x{p.raw_h}")
+    if dtype != torch.uint8:
+        raise ValueError("batched stitch expects uint8")
+    if hwc[2] != channels or channels not in (1, 3):
+        raise ValueError(f"{where}: {hwc[2]} channels, slot 0 has "
+                         f"{channels} (1 or 3, equal)")
+
+
+def _host_tensor(arr) -> torch.Tensor:
+    return (arr if isinstance(arr, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(arr)))
+
+
+def _stack_tensors(plan: LayoutPlan, stacks: Sequence, device: torch.device,
+                   rows: Optional[int] = None,
+                   channels: Optional[int] = None
+                   ) -> Tuple[List[torch.Tensor], bool]:
+    """Slot inputs as contiguous ``(B, H_i, W_i, C)`` uint8 tensors on
+    ``device``, checked against the plan, and whether they came as per-job
+    arrays.
+
+    A slot is either its whole stack, a numpy array or tensor of shape
+    ``(B, H_i, W_i, C)``, uploaded in one copy; or a sequence of per-job
+    ``(H_i, W_i, C)`` arrays, each copied from where it lies into its row
+    of a stack made on ``device``, with ``rows`` rows (default: one a job)
+    and those past the jobs zero.  All slots take the same form.  Only
+    per-job slots read ``rows`` and ``channels`` (default: the first
+    job's), the channel count every job must have."""
     if len(stacks) != len(plan.placements):
         raise ValueError("image-slot count does not match plan")
-    out, batch, channels = [], None, None
-    for arr, p in zip(stacks, plan.placements):
-        if not isinstance(arr, torch.Tensor):
-            arr = torch.from_numpy(np.ascontiguousarray(arr))
-        if batch is None and arr.ndim == 4:
-            batch, channels = arr.shape[0], arr.shape[3]
-        if arr.ndim != 4 or arr.shape[0] != batch:
-            raise ValueError(f"slot {p.index}: expected (B={batch}, H, W, C),"
-                             f" got {tuple(arr.shape)}")
-        if tuple(arr.shape[1:3]) != (p.raw_h, p.raw_w):
-            raise ValueError(
-                f"slot {p.index}: got {arr.shape[2]}x{arr.shape[1]}, "
-                f"plan says {p.raw_w}x{p.raw_h}")
-        if arr.dtype != torch.uint8:
-            raise ValueError("batched stitch expects uint8")
-        if arr.shape[3] != channels or channels not in (1, 3):
-            raise ValueError(f"slot {p.index}: {arr.shape[3]} channels, "
-                             f"slot 0 has {channels} (1 or 3, equal)")
-        out.append(arr.to(device).contiguous())
-    return out
+    per_job = [not isinstance(s, (np.ndarray, torch.Tensor)) for s in stacks]
+    if not any(per_job):
+        out, batch, channels = [], None, None
+        for arr, p in zip(stacks, plan.placements):
+            arr = _host_tensor(arr)
+            if batch is None and arr.ndim == 4:
+                batch, channels = arr.shape[0], arr.shape[3]
+            if arr.ndim != 4 or arr.shape[0] != batch:
+                raise ValueError(f"slot {p.index}: expected (B={batch}, H, "
+                                 f"W, C), got {tuple(arr.shape)}")
+            _check_rows(p, arr.shape[1:], arr.dtype, channels,
+                        f"slot {p.index}")
+            out.append(arr.to(device).contiguous())
+        return out, False
+    if not all(per_job):
+        raise ValueError("slots mix whole stacks and per-job arrays")
+    jobs = len(stacks[0])
+    rows = jobs if rows is None else rows
+    if any(len(s) != jobs for s in stacks) or jobs > rows:
+        raise ValueError(f"slots hold {sorted({len(s) for s in stacks})} "
+                         f"jobs, expected one count of at most {rows}")
+    if channels is None:
+        if not jobs:
+            raise ValueError("no job to take the channel count from")
+        channels = _host_tensor(stacks[0][0]).shape[-1]
+    out = []
+    for seq, p in zip(stacks, plan.placements):
+        dst = torch.empty((rows, p.raw_h, p.raw_w, channels),
+                          dtype=torch.uint8, device=device)
+        for i, arr in enumerate(seq):
+            arr = _host_tensor(arr)
+            if arr.ndim != 3:
+                raise ValueError(f"slot {p.index}, job {i}: expected (H, W, "
+                                 f"C), got {tuple(arr.shape)}")
+            _check_rows(p, arr.shape, arr.dtype, channels,
+                        f"slot {p.index}, job {i}")
+            dst[i].copy_(arr)
+        # the rows of no job (a mesh's padding) are zero jobs
+        dst[jobs:].zero_()
+        out.append(dst)
+    return out, True
 
 
 def stitch_batch(plan: LayoutPlan, stacks: Sequence, device,
                  plain: bool = False,
                  steps: Optional[Sequence[Optional[_Step]]] = None,
-                 card: int = 0) -> torch.Tensor:
+                 card: int = 0, rows: Optional[int] = None,
+                 channels: Optional[int] = None) -> torch.Tensor:
     """B jobs of one plan on ``device``: ``stacks[i]`` is image slot i's
-    ``(B, H_i, W_i, C)`` uint8 stack (numpy or tensor); returns the
+    ``(B, H_i, W_i, C)`` uint8 stack (numpy or tensor), or the sequence of
+    its jobs' ``(H_i, W_i, C)`` arrays, copied into a stack of ``rows``
+    rows on ``device`` (:func:`_stack_tensors`); returns the
     ``(B, canvas_h, canvas_w, C)`` uint8 canvas tensor.  One kernel launch
     per resampled placement for the whole batch.  ``steps`` (from
     :func:`plan_steps`) lets a caller hold its taps; work is enqueued on the
     current stream and the caller synchronises.  ``card``, the batch's
-    index on a mesh's ``jobs`` axis, is counted on its spans."""
+    index on a mesh's ``jobs`` axis, is counted on its spans; the upload
+    also counts ``direct``, 1 where the rows came from per-job arrays."""
     device = torch.device(device)
     with spans.span("batch.h2d") as s:
         s.counts = {"card": card}
-        srcs = _stack_tensors(plan, stacks, device)
+        srcs, direct = _stack_tensors(plan, stacks, device, rows, channels)
+        s.counts["direct"] = int(direct)
     with spans.span("batch.draw", start_ns=s.end_ns) as draw:
         draw.counts = {"card": card}
         canvas = new_canvas(plan, srcs[0].shape[3], device,

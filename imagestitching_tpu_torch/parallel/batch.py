@@ -24,12 +24,19 @@ JAX class's ``jax.jit``, ``ensure_compile_cache`` and
 ``check_plan_feasible`` (the gather kernel has no ``Infeasible``) have no
 twin.
 
+A slot comes as its whole ``(B, H, W, C)`` stack, uploaded in one copy, or
+as its jobs' own ``(H, W, C)`` arrays, each copied straight into its row of
+the shard's stack on the device, with rows past the jobs zero-filled there:
+the server hands its jobs' arrays, so a flush builds no host stack.
+
 A call is timed as spans (:mod:`..runtime.spans`): per shard ``batch.h2d``
 (the upload of its stacks) and ``batch.draw`` (the enqueue of its canvas
 and placements), then per device ``batch.sync`` (the wait for the kernels)
 and per shard ``batch.readback`` (the copy into the host array).  Each
 carries the count ``card``: the shard's index on the ``jobs`` axis (0
-without a mesh); a device's ``batch.sync`` carries its first shard's.
+without a mesh); a device's ``batch.sync`` carries its first shard's.  A
+``batch.h2d`` also counts ``direct``: 1 where its rows were copied from
+per-job arrays, 0 where whole stacks were uploaded.
 """
 
 from __future__ import annotations
@@ -91,15 +98,18 @@ class BatchedStitch:
         return len(self._first_card)
 
     def _shard(self, card: int, stacks: Sequence) -> torch.Tensor:
-        device = self.shards[card][0]
+        device, (lo, hi) = self.shards[card]
         return cuda_resize.stitch_batch(self.plan, stacks, device,
                                         plain=self.engine == "torch",
-                                        steps=self._steps[device], card=card)
+                                        steps=self._steps[device], card=card,
+                                        rows=hi - lo, channels=self.channels)
 
     def run_shards(self, stacks: Sequence) -> List[torch.Tensor]:
         """Enqueue every jobs shard: the ``(b, canvas_h, canvas_w, C)``
-        canvas tensor of each, on its own device, in shard order.  The
-        caller synchronises."""
+        canvas tensor of each, on its own device, in shard order.  A slot
+        given as per-job arrays gives each shard the jobs in its rows,
+        which may be fewer than its rows or none.  The caller
+        synchronises."""
         return [self._shard(k, [s[lo:hi] for s in stacks])
                 for k, (_, (lo, hi)) in enumerate(self.shards)]
 
@@ -115,12 +125,20 @@ class BatchedStitch:
         for out in outs:
             out[:1, :1, :1, :1].cpu()
 
-    def __call__(self, stacked_images: Sequence[np.ndarray]) -> np.ndarray:
-        """stacked_images[i]: (B, H_i, W_i, C) uint8 for image slot i;
-        returns the (B, canvas_h, canvas_w, C) uint8 canvases."""
+    def __call__(self, stacked_images: Sequence) -> np.ndarray:
+        """stacked_images[i], image slot i: its (B, H_i, W_i, C) uint8
+        stack, or the sequence of its b <= B jobs' (H_i, W_i, C) uint8
+        arrays, each copied straight into its row on the device (rows b to
+        B are zero jobs); returns the (B, canvas_h, canvas_w, C) uint8
+        canvases."""
         if len(stacked_images) != len(self.plan.placements):
             raise ValueError("image-slot count does not match plan")
         for arr, p in zip(stacked_images, self.plan.placements):
+            if not isinstance(arr, (np.ndarray, torch.Tensor)):
+                if len(arr) > self.batch_size:
+                    raise ValueError(f"slot {p.index}: {len(arr)} jobs for "
+                                     f"B={self.batch_size}")
+                continue
             shape = tuple(arr.shape)
             if len(shape) != 4 or shape[0] != self.batch_size:
                 raise ValueError(

@@ -27,14 +27,18 @@ cap multiplies by the jobs axis and rounds down to a multiple of it, and a
 flush pads with zero jobs up to the next multiple and drops their canvases
 (twins of ``_effective_cap``, ``_padded_batch`` and ``_batch_cap``).
 
+A flush builds no host stack: it hands ``BatchedStitch`` each slot's jobs'
+own arrays, which the upload copies straight into their rows of the
+device stack; the padded rows are zero-filled on the device.
+
 Spans (:mod:`..runtime.spans`): each job is a root ``serve.submit`` on the
 client's thread with a job id of its own, then a ``serve.queue`` (from its
 enqueue to its flush's start) and a ``serve.resolve`` under its flush; each
-flush is a ``serve.flush`` holding ``serve.stack`` and ``BatchedStitch``'s
-``batch.*`` spans.  A flush that ran counts ``jobs`` (its real jobs),
-``pad_jobs`` (the zero jobs it padded with) and ``cards`` (the distinct
-devices its shards ran on).  The timings of :meth:`StitchServer.stats` are
-sums of the same clock readings.
+flush is a ``serve.flush`` holding ``serve.stack`` (gathering each slot's
+arrays from the jobs) and ``BatchedStitch``'s ``batch.*`` spans.  A flush
+that ran counts ``jobs`` (its real jobs), ``pad_jobs`` (the zero jobs it
+padded with) and ``cards`` (the distinct devices its shards ran on).  The
+timings of :meth:`StitchServer.stats` are sums of the same clock readings.
 """
 
 from __future__ import annotations
@@ -137,7 +141,7 @@ class StitchServer:
         self._log = get_logger()
         # worker-thread-only mutation.  queue_wait_* = submit -> flush
         # start per job (what a client pays for batching); flush = flush
-        # wall, stacking included; stack = host np.stack of the slots.
+        # wall, stacking included; stack = gathering the slots' arrays.
         # Timings in ns, summed from the spans' readings; stats() gives s.
         self._stats = {"jobs": 0, "batches": 0, "failed": 0, "warmups": 0}
         self._ns = {"queue_wait": 0, "queue_wait_max": 0, "flush": 0,
@@ -494,15 +498,12 @@ class StitchServer:
                 padded = self._padded_batch(b)
                 with spans.span("serve.stack",
                                 start_ns=flush.start_ns) as stack:
-                    stacks = []
-                    for slot in range(len(plan.placements)):
-                        arrs = [j.images[slot] for j in jobs]
-                        # zero jobs up to a jobs-axis multiple; their
-                        # canvases drop
-                        arrs += [np.zeros_like(arrs[0])] * (padded - b)
-                        stacks.append(np.stack(arrs))
+                    # the rows up to a jobs-axis multiple are zero jobs,
+                    # made on the device; their canvases drop
+                    slots = [[j.images[slot] for j in jobs]
+                             for slot in range(len(plan.placements))]
                 stitcher = self._get_compiled(plan, padded, channels)
-                out = stitcher(stacks)
+                out = stitcher(slots)
                 flush.counts = {"jobs": b, "pad_jobs": padded - b,
                                 "cards": stitcher.cards}
             # stats before resolving: a client woken by its future sees

@@ -152,6 +152,47 @@ def test_batched_rejects_mixed_channels():
                            device="cpu")
 
 
+@pytest.mark.parametrize("jobs", [_B, 1], ids=["full", "padded"])
+@pytest.mark.parametrize("name", sorted(_CASES))
+def test_per_job_arrays_equal_the_stack(name, jobs):
+    """Each slot given as its jobs' own arrays, copied into their rows on
+    the device, gives the canvases of the same jobs stacked on the host;
+    rows past the jobs are zero jobs, as a stack padded with zeros."""
+    plan, stacks = _case(name)
+    for s in stacks:
+        s[jobs:] = 0
+    bs = batch.BatchedStitch(plan, _B, stacks[0].shape[3], device="cpu")
+    got = bs([list(s[:jobs]) for s in stacks])
+    np.testing.assert_array_equal(got, bs(stacks))
+
+
+def _per_job_slots(bad):
+    plan = solve([ImageSpec(16, 16), ImageSpec(16, 8)],
+                 StitchOptions(supersample=False))
+    a, b = np.zeros((16, 16, 3), np.uint8), np.zeros((8, 16, 3), np.uint8)
+    slots = {
+        "too-many-jobs": [[a, a, a], [b, b, b]],
+        "mixed-forms": [[a, a], np.stack([b, b])],
+        "uneven-jobs": [[a, a], [b]],
+        "wrong-dims": [[a, a], [a, a]],
+        "not-hwc": [[a, a[..., 0]], [b, b]],
+        "float": [[a, a.astype(np.float32)], [b, b]],
+        "channels": [[a, a], [b, b[..., :1]]],
+    }[bad]
+    return plan, slots
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("too-many-jobs", "B=2"), ("mixed-forms", "mix"),
+    ("uneven-jobs", "jobs"), ("wrong-dims", "plan says"),
+    ("not-hwc", "H, W, C"), ("float", "uint8"), ("channels", "channels"),
+])
+def test_batched_validates_per_job_arrays(bad, match):
+    plan, slots = _per_job_slots(bad)
+    with pytest.raises(ValueError, match=match):
+        batch.BatchedStitch(plan, 2, device="cpu")(slots)
+
+
 @pytest.mark.parametrize("kw,exc", [
     (dict(engine="pallas"), ValueError),
     (dict(engine="cuda", device="cpu"), ValueError),

@@ -3,13 +3,16 @@ four-card benchmark cell ``serve64_1080p_mesh4.closed64`` serves it, here
 on a mesh of four ``cpu`` devices with the plain engine (``engine=
 "torch"``) at config 5's shapes divided by 16.
 
-One flush of 13, 16 or 45 jobs each (a flush of 13 or 45 pads 3 zero
-jobs to reach a multiple of 4): every canvas is held to the float64
-reference of its own sources (``stitchbench/reference/``: within 1 uint8
-step on resampled values, exact on copies and background) and equals the
-one-device server's canvas bit for bit; no padded job's canvas comes back;
-the flush counts its jobs, its padding and its distinct devices (1: the
-mesh repeats one device) and each ``batch.*`` span its card."""
+One flush of 5, 13, 16 or 45 jobs each (a flush of 13 or 45 pads 3 zero
+jobs to reach a multiple of 4; one of 5 pads 3 to 8, so its last card
+holds only padding): every canvas is held to the float64 reference of its
+own sources (``stitchbench/reference/``: within 1 uint8 step on resampled
+values, exact on copies and background) and equals the one-device
+server's canvas, and ``BatchedStitch``'s on the jobs stacked on the host
+with zero jobs, bit for bit; no padded job's canvas comes back; the flush
+counts its jobs, its padding and its distinct devices (1: the mesh
+repeats one device) and each ``batch.*`` span its card, each upload its
+rows copied from the jobs' own arrays."""
 
 import dataclasses
 import os
@@ -19,6 +22,8 @@ import numpy as np
 import pytest
 
 from imagestitching_tpu_torch import RuntimeConfig, StitchServer
+from imagestitching_tpu_torch.core.layout import ImageSpec, solve
+from imagestitching_tpu_torch.parallel.batch import BatchedStitch
 from imagestitching_tpu_torch.parallel.mesh import make_mesh
 from imagestitching_tpu_torch.runtime import spans
 from stitchbench import deploy, harness
@@ -30,7 +35,7 @@ SHAPES = deploy.shapes(CONFIG, 16)
 ORIENT = [o for _, _, o in SHAPES]
 OPTIONS = deploy.options(CONFIG)
 BATCH = ("batch.h2d", "batch.draw", "batch.sync", "batch.readback")
-SIZES = [13, 16, 45]
+SIZES = [5, 13, 16, 45]
 
 
 def _jobs(n):
@@ -112,3 +117,30 @@ def test_batch_spans_carry_their_card(served):
          for k in range(4)] + [("batch.sync", 0)])
     assert sorted((r.name, r.counts["card"]) for r in one_records
                   if r.name in BATCH) == sorted((n, 0) for n in BATCH)
+
+
+def test_mesh_canvases_equal_batched_stitch_on_stacked_inputs(served):
+    """The flush hands each slot's jobs' own arrays and the padded rows
+    are zero-filled on each card: the same canvases as the jobs stacked on
+    the host with zero jobs up to a multiple of 4, run over the mesh."""
+    jobs, outs, *_ = served
+    n, padded = len(jobs), -(-len(jobs) // 4) * 4
+    plan = solve([ImageSpec(w, h, o) for w, h, o in SHAPES], OPTIONS,
+                 RuntimeConfig().limits)
+    stacks = [np.stack([imgs[k] for imgs in jobs]
+                       + [np.zeros_like(jobs[0][k])] * (padded - n))
+              for k in range(len(SHAPES))]
+    want = BatchedStitch(plan, padded, engine="torch",
+                         mesh=make_mesh(devices=["cpu"] * 4))(stacks)
+    for i, out in enumerate(outs):
+        np.testing.assert_array_equal(out, want[i])
+
+
+def test_every_card_uploads_its_rows_direct(served):
+    """Every card's upload, one holding only padding too, copies rows from
+    the jobs' own arrays; so does the one-device server's."""
+    _, _, records, _, one_records = served
+    for recs, cards in ((records, 4), (one_records, 1)):
+        h2d = [r.counts for r in recs if r.name == "batch.h2d"]
+        assert sorted(c["card"] for c in h2d) == list(range(cards))
+        assert all(c["direct"] == 1 for c in h2d)

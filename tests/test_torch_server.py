@@ -11,6 +11,7 @@ waits a few seconds at most.
 
 import dataclasses
 import threading
+import time
 from concurrent.futures import wait as fwait
 
 import numpy as np
@@ -25,7 +26,7 @@ from imagestitching_tpu_torch import (CanvasLimits, MemoryBudget,
                                       RuntimeConfig, StitchOptions)
 from imagestitching_tpu_torch.core.layout import ImageSpec, solve
 from imagestitching_tpu_torch.parallel import batch
-from imagestitching_tpu_torch.runtime import tiler
+from imagestitching_tpu_torch.runtime import spans, tiler
 from imagestitching_tpu_torch.runtime.logger import get_logger
 from imagestitching_tpu_torch.serve.server import (ServerOverloaded,
                                                    StitchServer)
@@ -127,10 +128,11 @@ def test_poisoned_job_fails_alone_by_split_retry(monkeypatch):
     that really fails gets the error."""
     real = batch.BatchedStitch.__call__
 
-    def poisoned(self, stacks):
-        if any((s == 7).all(axis=(1, 2, 3)).any() for s in stacks):
+    def poisoned(self, slots):
+        # each slot is its jobs' own arrays
+        if any((a == 7).all() for jobs in slots for a in jobs):
             raise RuntimeError("poisoned job")
-        return real(self, stacks)
+        return real(self, slots)
 
     monkeypatch.setattr(batch.BatchedStitch, "__call__", poisoned)
     get_logger().clear()
@@ -147,6 +149,76 @@ def test_poisoned_job_fails_alone_by_split_retry(monkeypatch):
     assert st["failed"] == 1 and st["jobs"] == 3 and st["pending"] == 0
     tags = [r["tag"] for r in get_logger().ring()]
     assert "serve.batch_fail_retry_split" in tags
+
+
+def _one_flush(jobs, opts, **kw):
+    """Every job in one flush (``max_batch`` is their number): the
+    canvases, in submission order, and the worker's span records."""
+    t0 = time.perf_counter_ns()
+    with server(max_batch=len(jobs), max_wait_s=30.0, **kw) as s:
+        futs = [s.submit(imgs, opts) for imgs in jobs]
+        outs = [f.result(timeout=T) for f in futs]
+        assert s.stats()["batches"] == 1
+        worker = s._thread.ident
+    records, dropped = spans.snapshot(t0, time.perf_counter_ns())
+    assert not dropped
+    return outs, [r for r in records if r.thread == worker]
+
+
+@pytest.mark.parametrize("engine", ["auto", "torch"])
+@pytest.mark.parametrize("c", [1, 3])
+def test_server_canvases_equal_batched_stitch_on_stacked_inputs(c, engine):
+    """The flush hands its jobs' own arrays, which the upload copies into
+    their rows on the device: the canvases are those of ``BatchedStitch``
+    on the same jobs stacked on the host, bit for bit."""
+    opts = StitchOptions(gap=3)
+    jobs = [[rand_img(40, 24, c), rand_img(24, 30, c)] for _ in range(3)]
+    outs, _ = _one_flush(jobs, opts, engine=engine)
+    plan = solve([ImageSpec(40, 24), ImageSpec(24, 30)], opts)
+    want = batch.BatchedStitch(plan, 3, c, engine=engine, device="cpu")(
+        [np.stack([imgs[k] for imgs in jobs]) for k in range(2)])
+    for i, out in enumerate(outs):
+        np.testing.assert_array_equal(out, want[i])
+
+
+def test_flush_hands_the_jobs_own_arrays(monkeypatch):
+    """No host copy: each slot that ``BatchedStitch`` receives is the list
+    of its jobs' submitted arrays themselves, in job order."""
+    real = batch.BatchedStitch.__call__
+    seen = []
+
+    def spy(self, slots):
+        seen.append(slots)
+        return real(self, slots)
+
+    monkeypatch.setattr(batch.BatchedStitch, "__call__", spy)
+    jobs = [[rand_img(20, 12), rand_img(16, 12)] for _ in range(3)]
+    outs, _ = _one_flush(jobs, StitchOptions())
+    (slots,) = seen
+    assert len(slots) == 2
+    for k, slot in enumerate(slots):
+        assert isinstance(slot, list) and len(slot) == 3
+        assert all(a is imgs[k] for a, imgs in zip(slot, jobs))
+    plan = solve([ImageSpec(20, 12), ImageSpec(16, 12)], StitchOptions())
+    assert [o.shape for o in outs] == [(plan.canvas_h, plan.canvas_w, 3)] * 3
+
+
+@pytest.mark.parametrize("form", ["server", "stack"])
+def test_upload_counts_direct(form):
+    """A flush's upload copies its jobs' arrays into their rows (``direct``
+    1); a whole stack is uploaded in one copy (0)."""
+    jobs = [[rand_img(20, 12)] for _ in range(2)]
+    if form == "server":
+        _, records = _one_flush(jobs, StitchOptions())
+    else:
+        plan = solve([ImageSpec(20, 12)], StitchOptions())
+        t0 = time.perf_counter_ns()
+        batch.BatchedStitch(plan, 2, device="cpu")(
+            [np.stack([imgs[0] for imgs in jobs])])
+        records, _ = spans.snapshot(t0, time.perf_counter_ns())
+        records = [r for r in records if r.thread == threading.get_ident()]
+    (h2d,) = [r for r in records if r.name == "batch.h2d"]
+    assert h2d.counts == {"card": 0, "direct": int(form == "server")}
 
 
 def test_close_flushes():
