@@ -29,12 +29,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
 5. export: ``stitch_to_file(stream=False)`` to PNG, decoded back;
 6. kernel times (CUDA events, and the profiler's device busy time) at
    config 3's shapes: the prepared launch (``cuda_resize.PlaceLaunch``, as
-   the main path launches it) beside the one-shot shell, the plain
-   version, the parent body (with ``--parent-source``), one
-   ``F.interpolate`` call and the bound (tap footprint read once and
-   regions written, at 3.35 TB/s), and the host microseconds a launch of
-   each form takes; the prepared store checked bit for bit against the
-   one-shot shell's and the plain version's;
+   the main path launches it) beside the plain version, the parent body
+   (with ``--parent-source``), one ``F.interpolate`` call and the bound
+   (tap footprint read once and regions written, at 3.35 TB/s), and the
+   host microseconds a launch takes; the prepared store checked bit for bit
+   against the plain version's (and the parent's);
 7. where a warm config-3 job's time goes on the device (torch.profiler);
 8. the batched kernel against its plain version on the card, bit for bit,
    over phase 3's cases at B = 3 with other data per job, and against B
@@ -46,7 +45,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
    bit for bit, three jobs within 1 step of the oracle with the copy span
    exact; flush wall, jobs/s and MP/s, and a profiled warm flush;
 10. the same yardsticks for the batched kernel at config 5's shapes
-    (B = 64), prepared beside one-shot;
+    (B = 64);
 11. HTTP: ``StitchHTTPServer`` on localhost answers 4 concurrent
     ``POST /stitch`` with what ``imagestitching_tpu_torch.stitch`` gives;
 12. the windowed kernel (#3) against its plain version on the card, bit for
@@ -66,10 +65,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
     demotes to streamed, and under one below the canvas to banded, both
     equal to the resident canvas;
 15. the same yardsticks for the windowed kernel over config 4's 45 chunks
-    as the banded rung launches them (the prepared ``WindowLauncher``)
-    beside the one-shot shell, and where a streamed and a banded job's
-    time goes (torch.profiler), the banded one with no per-chunk tap
-    upload;
+    as the banded rung launches them (the prepared ``WindowLauncher``),
+    and where a streamed and a banded job's time goes (torch.profiler),
+    the banded one with no per-chunk tap upload;
 16. the overlapped scheduler: config 4-EXIF written as nine JPEG files with
     their orientation tags, through ``imagestitching_tpu_torch.stitch(files)``
     at the default ``RuntimeConfig`` (9 images, so ``overlap="auto"`` takes
@@ -136,11 +134,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
     CTA an SM, and the host microseconds a launch takes (prepared,
     one-shot, previous);
 25. #1-#3 at their main-path sites (config 3, config 5 at B = 64, config
-    4-EXIF's 45 banded chunks), prepared and one-shot, in a fresh process:
+    4-EXIF's 45 banded chunks), launched prepared, in a fresh process:
     ``python -m imagestitching_tpu_torch.tools.profile_resize``, which
-    must exit 0 with every form equal bit for bit: CUDA events, busy time
-    (every launch recorded, as late in this process it is not) and host
-    microseconds a launch.
+    must exit 0 with every launch equal bit for bit to the plain version:
+    CUDA events, busy time (every launch recorded, as late in this process
+    it is not) and host microseconds a launch.
 
 Phases 4-15 pass ``overlap="never"``: they read the non-overlapped path,
 which 9-image jobs leave for the overlapped scheduler by default.  Each
@@ -152,10 +150,7 @@ stitch, the grid and the preview (``launches_merge``, ``launches_grid``,
 ``launches_preview``), phase 22 for #3 space-sharded
 (``launches_space_sharded``), phase 23 for #2 on the jobs mesh
 (``launches_jobs_mesh``) and phase 24's profiler run for #4, each with the
-counts set to 0 just before.  Every one of those runs but the preview's
-(phase 21, which keeps the one-shot shell) and the profiler's must have
-launched #1-#3 through their prepared forms only
-(``cuda_resize.oneshot_launches`` stays 0).  The last two lines are a JSON
+counts set to 0 just before.  The last two lines are a JSON
 record of the kernels and the device line ``{"ok": true, "device":
 {...}}``.  Imports nothing of the JAX package.
 Before them the card's name and power limit, as ``nvidia-smi`` gives them.
@@ -322,11 +317,11 @@ def interp_call(src, orientation, n_rows, n_cols, kind):
 
 def load_parent(source):
     """The parent commit's kernel library, built from ``source`` (its
-    ``csrc/resize_place.cu``) with the port's nvcc flags into a temporary
-    directory, for timing beside the current body.  Its entries are bound
-    with the parent's signatures."""
+    ``csrc/resize_place.cu``, which has the prepared entries and the
+    ``PlaceArgs`` of this checkout) with the port's nvcc flags into a
+    temporary directory, for timing beside the current body."""
     import ctypes
-    from imagestitching_tpu_torch.ops import _build
+    from imagestitching_tpu_torch.ops import _build, cuda_resize
 
     out = os.path.join(tempfile.mkdtemp(prefix="parent_kernel_"),
                        "libparent.so")
@@ -334,50 +329,48 @@ def load_parent(source):
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     check(proc.returncode == 0, f"parent build: {proc.stderr[-2000:]}")
     lib = ctypes.CDLL(out)
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    taps = [p, p, i32, i32, p, p, i32, i32]
-    lib.resize_place_launch.argtypes = [p, i64, i64, i32, i32, *taps, p, i64,
-                                        i64, i64, i64, p]
-    lib.resize_place_batch_launch.argtypes = [p, i32, i64, i64, i64, i32,
-                                              i32, *taps, p, i64, i64, i64,
-                                              i64, i64, p]
-    lib.resize_place_window_launch.argtypes = [p, i64, i64, i32, *taps, p,
-                                               i64, p]
-    for f in (lib.resize_place_launch, lib.resize_place_batch_launch,
-              lib.resize_place_window_launch):
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.resize_place_args_size.argtypes = []
+    lib.resize_place_prepare.argtypes = [p]
+    lib.resize_place_run.argtypes = [p, p, p, p]
+    lib.resize_place_window_run.argtypes = [p, p, i32, i32, i32, p]
+    for f in (lib.resize_place_args_size, lib.resize_place_prepare,
+              lib.resize_place_run, lib.resize_place_window_run):
         f.restype = i32
+    check(lib.resize_place_args_size() == ctypes.sizeof(
+        cuda_resize.PlaceArgs), "the parent's PlaceArgs differs from this "
+          "checkout's")
     return lib
 
 
 def parent_call(lib, entry, src, orientation, taps, canvas, r0=0, c0=0):
     """One launch of the parent body (``entry``: one, batch or window)
-    with the current stream, as the port's wrappers made it."""
+    with the current stream, prepared once and called as the port's
+    launchers prepare and call it (``window``: ``src`` is the crop,
+    ``canvas`` the region, the taps the chunk's)."""
     import ctypes
 
-    import torch
+    from imagestitching_tpu_torch.ops import cuda_resize
 
-    ptr = ctypes.c_void_p
-    t = (ptr(taps[0].data_ptr()), ptr(taps[1].data_ptr()), taps[0].shape[0],
-         taps[1].shape[1], ptr(taps[2].data_ptr()), ptr(taps[3].data_ptr()),
-         taps[2].shape[0], taps[3].shape[1])
-    h, w, c = src.shape[-3:]
+    if entry == "window":
+        launch = cuda_resize.WindowLauncher(*taps, canvas, src.shape)
+    else:
+        launch = cuda_resize.PlaceLaunch(src, orientation, *taps, canvas, r0,
+                                         c0)
+    args = launch.args
+    check(lib.resize_place_prepare(ctypes.byref(args)) == 0,
+          f"parent {entry} prepare")
+    # the reference holds ``args`` alive for as long as the call exists
+    ref, index, stream = (ctypes.byref(args), src.get_device(),
+                          cuda_resize._raw_stream())
 
     def call():
-        stream = ptr(torch.cuda.current_stream().cuda_stream)
-        if entry == "batch":
-            err = lib.resize_place_batch_launch(
-                ptr(src.data_ptr()), src.shape[0], src.stride(0), h, w, c,
-                orientation, *t, ptr(canvas.data_ptr()), canvas.stride(0),
-                canvas.shape[1], canvas.shape[2], r0, c0, stream)
-        elif entry == "window":
-            err = lib.resize_place_window_launch(
-                ptr(src.data_ptr()), h, w, c, *t, ptr(canvas.data_ptr()),
-                canvas.shape[0], stream)
+        if entry == "window":
+            err = lib.resize_place_window_run(ref, src.data_ptr(), 0, 0,
+                                              taps[0].shape[0], stream(index))
         else:
-            err = lib.resize_place_launch(
-                ptr(src.data_ptr()), h, w, c, orientation, *t,
-                ptr(canvas.data_ptr()), canvas.shape[0], canvas.shape[1],
-                r0, c0, stream)
+            err = lib.resize_place_run(ref, src.data_ptr(), canvas.data_ptr(),
+                                       stream(index))
         check(err == 0, f"parent {entry} launch: error {err}")
     return call
 
@@ -486,20 +479,19 @@ def _fmt(v):
 
 
 def time_versions(kernel, plain, parent, library, bound, device_reps=20,
-                  oneshot=None, **kw):
+                  **kw):
     """Per call, by CUDA events (median of two rounds in the order plain,
-    kernel, oneshot, parent, library, library, parent, oneshot, kernel,
-    plain) and the profiler's device busy time (the profiler tool's
-    ``busy_ms``: a trace that reads below ``bound``, the kernel's bound in
-    ms, which each must also meet, missed part of the work and is taken
-    again), of the kernel (its prepared launch where it has one), its plain
-    version, the one-shot shell, the parent body and the library call
-    (None: not measured)."""
+    kernel, parent, library, library, parent, kernel, plain) and the
+    profiler's device busy time (the profiler tool's ``busy_ms``: a trace
+    that reads below ``bound``, the kernel's bound in ms, which each must
+    also meet, missed part of the work and is taken again), of the kernel
+    (its prepared launch), its plain version, the parent body and the
+    library call (None: not measured)."""
     from imagestitching_tpu_torch.tools.profile_bf16_stage import busy_ms
 
-    fns = {"kernel": kernel, "plain": plain, "oneshot": oneshot,
-           "parent": parent, "library": library}
-    order = ["plain", "kernel", "oneshot", "parent", "library"]
+    fns = {"kernel": kernel, "plain": plain, "parent": parent,
+           "library": library}
+    order = ["plain", "kernel", "parent", "library"]
     ev = {k: [] for k in order}
     for name in order + order[::-1]:
         if fns[name] is not None:
@@ -512,23 +504,22 @@ def time_versions(kernel, plain, parent, library, bound, device_reps=20,
     return out
 
 
-def host_pair(prepared, oneshot, launches, reps):
-    """Host microseconds a launch of the prepared form and of the one-shot
-    shell: ``reps`` calls of each (``launches`` launches a call) with no
-    synchronise among them."""
+def launch_host_us(prepared, launches, reps):
+    """Host microseconds a prepared launch takes: ``reps`` calls of
+    ``prepared`` (``launches`` launches a call) with no synchronise among
+    them."""
     from imagestitching_tpu_torch.tools.profile_bf16_stage import host_us
 
-    return {"host_us": host_us(prepared, reps) / launches,
-            "oneshot_host_us": host_us(oneshot, reps) / launches}
+    return host_us(prepared, reps) / launches
 
 
 def phase6_times(dev, smi, plan, imgs, parent):
     """Kernel #1 at config 3's placements: CUDA events and busy time of the
     prepared launch (``cuda_resize.PlaceLaunch``, as ``stitch`` launches
-    it) beside the one-shot shell, the parent body, ``F.interpolate`` (the
-    library call) and the plain version, the bound, the host microseconds
-    a launch of each form takes, and the prepared store bit for bit against
-    the one-shot shell's and the plain version's (and the parent's)."""
+    it) beside the parent body, ``F.interpolate`` (the library call) and
+    the plain version, the bound, the host microseconds a launch takes, and
+    the prepared store bit for bit against the plain version's (and the
+    parent's)."""
     import torch
     from imagestitching_tpu_torch.core import geometry
     from imagestitching_tpu_torch.ops import cuda_resize
@@ -536,9 +527,7 @@ def phase6_times(dev, smi, plan, imgs, parent):
     canvas = torch.zeros((plan.canvas_h, plan.canvas_w, 3),
                          dtype=torch.uint8, device=dev)
     other = torch.zeros_like(canvas)
-    once = torch.zeros_like(canvas)
-    parts, rows, worst, ndiff, nparent, nonce = [], [], 0, 0, 0, 0
-    kernels, oneshots = [], []
+    parts, rows, kernels, worst, ndiff, nparent = [], [], [], 0, 0, 0
     for p in resampled(plan):
         src = src_on(imgs[p.index], dev)
         taps = taps_on(p, plan.filter, dev)
@@ -549,9 +538,6 @@ def phase6_times(dev, smi, plan, imgs, parent):
 
         def kernel(src=src, launch=launch):
             launch(src, canvas)
-
-        def oneshot(src=src, taps=taps, p=p, r0=r0, c0=c0, out=canvas):
-            cuda_resize.resize_place(src, p.orientation, *taps, out, r0, c0)
 
         def plain(src=src, taps=taps, p=p, r0=r0, r1=r1, c0=c0, c1=c1):
             canvas[r0:r1, c0:c1] = cuda_resize.resize_place_ref(
@@ -566,15 +552,13 @@ def phase6_times(dev, smi, plan, imgs, parent):
                                  disp_w, 3) + (r1 - r0) * (c1 - c0) * 3
         t = time_versions(kernel, plain, old, interp_call(
             src, p.orientation, r1 - r0, c1 - c0, plan.filter),
-            bound_ms(nbytes), oneshot=oneshot)
+            bound_ms(nbytes))
         kernel()
         got = canvas[r0:r1, c0:c1].clone()
         plain()
         d = (got.int() - canvas[r0:r1, c0:c1].int()).abs()
         worst = max(worst, int(d.max()))
         ndiff += int((d > 0).any(dim=2).sum())
-        oneshot(out=once)
-        nonce += int((once[r0:r1, c0:c1] != got).any(dim=2).sum())
         if old is not None:
             old()
             nparent += int((other[r0:r1, c0:c1] != got).any(dim=2).sum())
@@ -582,11 +566,9 @@ def phase6_times(dev, smi, plan, imgs, parent):
         t["bytes"] = nbytes
         parts.append(t)
         kernels.append(kernel)
-        oneshots.append(oneshot)
         rows.append(f"#{p.index} o{p.orientation} {p.raw_w}x{p.raw_h}->"
                     f"{c1 - c0}x{r1 - r0} prepared {t['kernel_ms']:.4f} "
-                    f"({_fmt(t['kernel_busy'])}) one-shot "
-                    f"{t['oneshot_ms']:.4f} ({_fmt(t['oneshot_busy'])}) "
+                    f"({_fmt(t['kernel_busy'])}) "
                     f"parent {_fmt(t['parent_ms'])} "
                     f"({_fmt(t['parent_busy'])}) F.interpolate "
                     f"{t['library_ms']:.4f} ({_fmt(t['library_busy'])}) plain "
@@ -594,27 +576,23 @@ def phase6_times(dev, smi, plan, imgs, parent):
                     f"{t['bound_ms']:.4f} ({nbytes} bytes)")
     check(worst == 0 and ndiff == 0, f"config 3 kernel vs plain max "
           f"|diff| {worst}, {ndiff} differing pixels (must be exact)")
-    check(nonce == 0, f"config 3: {nonce} pixels unlike the one-shot shell")
     check(nparent == 0, f"config 3: {nparent} pixels unlike the parent body")
     tot = _yardsticks(parts)
-    tot.update(host_pair(lambda: [f() for f in kernels],
-                         lambda: [f() for f in oneshots], len(kernels), 40))
+    tot["host_us"] = launch_host_us(lambda: [f() for f in kernels],
+                                    len(kernels), 40)
     say(f"phase6 times (ms per launch; CUDA events, median of 20x10 "
-        f"launches in two rounds plain prepared one-shot parent "
-        f"F.interpolate and back; in brackets the profiler's device busy "
-        f"time; bound = tap footprint read once + region written at 3.35 "
-        f"TB/s) on {smi}: " + " | ".join(rows)
-        + f" | total prepared {tot['kernel_ms']:.4f} "
-        f"({_fmt(tot['kernel_busy'])}) one-shot {tot['oneshot_ms']:.4f} "
-        f"({_fmt(tot['oneshot_busy'])}) parent {_fmt(tot['parent_ms'])} "
+        f"launches in two rounds plain prepared parent F.interpolate and "
+        f"back; in brackets the profiler's device busy time; bound = tap "
+        f"footprint read once + region written at 3.35 TB/s) on {smi}: "
+        + " | ".join(rows) + f" | total prepared {tot['kernel_ms']:.4f} "
+        f"({_fmt(tot['kernel_busy'])}) parent {_fmt(tot['parent_ms'])} "
         f"({_fmt(tot['parent_busy'])}) F.interpolate "
         f"{tot['library_ms']:.4f} ({_fmt(tot['library_busy'])}) plain "
         f"{tot['plain_ms']:.4f} ({_fmt(tot['plain_busy'])}) bound "
         f"{tot['bound_ms']:.4f} | host us a launch (40 jobs of "
         f"{len(kernels)} launches, no synchronise among them) prepared "
-        f"{tot['host_us']:.2f} one-shot {tot['oneshot_host_us']:.2f} | "
-        f"prepared vs plain max |diff| {worst}, differing px {ndiff}, "
-        f"unlike the one-shot shell {nonce}, unlike parent {nparent}")
+        f"{tot['host_us']:.2f} | prepared vs plain max |diff| {worst}, "
+        f"differing px {ndiff}, unlike parent {nparent}")
     tot["worst"] = worst
     return tot
 
@@ -725,7 +703,7 @@ def phase9_config5(dev, smi, budget, shapes=CONFIG5, batch=BATCH5):
         t0 = time.perf_counter()
         outs = flush_round()
         wall = time.perf_counter() - t0
-        single, launches_main, _ = _prepared_counts("config 5 flush")
+        single, launches_main, _ = _launch_counts()
         after = server.stats()
         peak_mb = torch.cuda.max_memory_allocated(dev) / 1e6
         flushes = after["batches"] - before["batches"]
@@ -783,11 +761,10 @@ def phase9_config5(dev, smi, budget, shapes=CONFIG5, batch=BATCH5):
 def phase10_batch_times(dev, smi, plan, stacks, parent):
     """Kernel #2 at config 5's placements and batch size: CUDA events and
     busy time of the prepared launch (as ``stitch_batch`` launches it)
-    beside the one-shot shell, the parent body, ``F.interpolate`` and the
-    plain version, the bound, the host microseconds a launch of each form
-    takes, and the prepared store bit for bit against the one-shot shell's
-    and the plain version's (and the parent's).  Returns the summed
-    yardsticks."""
+    beside the parent body, ``F.interpolate`` and the plain version, the
+    bound, the host microseconds a launch takes, and the prepared store bit
+    for bit against the plain version's (and the parent's).  Returns the
+    summed yardsticks."""
     import torch
     from imagestitching_tpu_torch.core import geometry
     from imagestitching_tpu_torch.ops import cuda_resize
@@ -796,8 +773,7 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
     canvas = torch.zeros((batch, plan.canvas_h, plan.canvas_w, 3),
                          dtype=torch.uint8, device=dev)
     other = torch.zeros_like(canvas) if parent is not None else None
-    parts, rows, worst, ndiff, nparent, nonce = [], [], 0, 0, 0, 0
-    kernels, oneshots = [], []
+    parts, rows, kernels, worst, ndiff, nparent = [], [], [], 0, 0, 0
     for p in resampled(plan):
         src = torch.from_numpy(stacks[p.index]).to(dev)
         taps = taps_on(p, plan.filter, dev)
@@ -808,10 +784,6 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
 
         def kernel(src=src, launch=launch):
             launch(src, canvas)
-
-        def oneshot(src=src, taps=taps, p=p, r0=r0, c0=c0):
-            cuda_resize.resize_place_batch(src, p.orientation, *taps, canvas,
-                                           r0, c0)
 
         def plain(src=src, taps=taps, p=p, r0=r0, r1=r1, c0=c0, c1=c1):
             canvas[:, r0:r1, c0:c1] = cuda_resize.resize_place_batch_ref(
@@ -828,7 +800,7 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
             *(x.cpu().numpy() for x in taps[2:]), disp_w, 3)
             + (r1 - r0) * (c1 - c0) * 3)
         t = time_versions(kernel, plain, old, library, bound_ms(nbytes),
-                          device_reps=3, oneshot=oneshot, reps=5, inner=2)
+                          device_reps=3, reps=5, inner=2)
         del library
         kernel()
         got = canvas[:, r0:r1, c0:c1].clone()
@@ -836,8 +808,6 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
         d = (got.int() - canvas[:, r0:r1, c0:c1].int()).abs()
         worst = max(worst, int(d.max()))
         ndiff += int((d > 0).any(dim=3).sum())
-        oneshot()
-        nonce += int((canvas[:, r0:r1, c0:c1] != got).any(dim=3).sum())
         if old is not None:
             old()
             nparent += int((other[:, r0:r1, c0:c1] != got).any(dim=3).sum())
@@ -846,11 +816,9 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
         t["bytes"] = nbytes
         parts.append(t)
         kernels.append(kernel)
-        oneshots.append(oneshot)
         rows.append(f"#{p.index} {p.raw_w}x{p.raw_h}->{c1 - c0}x{r1 - r0} "
                     f"prepared {t['kernel_ms']:.4f} "
-                    f"({_fmt(t['kernel_busy'])}) one-shot "
-                    f"{t['oneshot_ms']:.4f} ({_fmt(t['oneshot_busy'])}) "
+                    f"({_fmt(t['kernel_busy'])}) "
                     f"parent {_fmt(t['parent_ms'])} "
                     f"({_fmt(t['parent_busy'])}) F.interpolate "
                     f"{t['library_ms']:.4f} ({_fmt(t['library_busy'])}) plain "
@@ -858,26 +826,22 @@ def phase10_batch_times(dev, smi, plan, stacks, parent):
                     f"{t['bound_ms']:.4f}")
     check(worst == 0 and ndiff == 0, f"config 5 batched kernel vs plain max "
           f"|diff| {worst}, {ndiff} differing pixels (must be exact)")
-    check(nonce == 0, f"config 5: {nonce} pixels unlike the one-shot shell")
     check(nparent == 0, f"config 5: {nparent} pixels unlike the parent body")
     tot = _yardsticks(parts)
-    tot.update(host_pair(lambda: [f() for f in kernels],
-                         lambda: [f() for f in oneshots], len(kernels), 10))
+    tot["host_us"] = launch_host_us(lambda: [f() for f in kernels],
+                                    len(kernels), 10)
     say(f"phase10 batched times at B={batch} (ms per launch; CUDA events, "
-        f"median of 5x2 in two rounds plain prepared one-shot parent "
-        f"F.interpolate and back; in brackets the profiler's device busy "
-        f"time) on {smi}: "
+        f"median of 5x2 in two rounds plain prepared parent F.interpolate "
+        f"and back; in brackets the profiler's device busy time) on {smi}: "
         + " | ".join(rows) + f" | total prepared {tot['kernel_ms']:.4f} "
-        f"({_fmt(tot['kernel_busy'])}) one-shot {tot['oneshot_ms']:.4f} "
-        f"({_fmt(tot['oneshot_busy'])}) parent {_fmt(tot['parent_ms'])} "
+        f"({_fmt(tot['kernel_busy'])}) parent {_fmt(tot['parent_ms'])} "
         f"({_fmt(tot['parent_busy'])}) F.interpolate "
         f"{tot['library_ms']:.4f} ({_fmt(tot['library_busy'])}) plain "
         f"{tot['plain_ms']:.4f} ({_fmt(tot['plain_busy'])}) bound "
         f"{tot['bound_ms']:.4f} ({tot['bytes']} bytes) | host us a launch "
         f"(10 flushes of {len(kernels)} launches, no synchronise among them) "
-        f"prepared {tot['host_us']:.2f} one-shot {tot['oneshot_host_us']:.2f}"
-        f" | prepared vs plain max |diff| {worst}, differing px {ndiff}, "
-        f"unlike the one-shot shell {nonce}, unlike parent {nparent}")
+        f"prepared {tot['host_us']:.2f} | prepared vs plain max |diff| "
+        f"{worst}, differing px {ndiff}, unlike parent {nparent}")
     tot["worst"] = worst
     return tot
 
@@ -1048,7 +1012,7 @@ def phase13_config4(dev, smi, shapes=CONFIG4, big=CONFIG4_24MP):
             return_metrics=True)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev) - base
-        launched = _prepared_counts(f"config 4 {strategy}")
+        launched = _launch_counts()
         check(m.strategy == strategy, f"ran {m.strategy}, expected "
               f"{strategy}")
         if strategy == "banded":
@@ -1170,11 +1134,10 @@ def phase15_window_times(dev, smi, plan, opts, items, parent,
     placements' taps already on the card, launched as the banded rung
     launches it: one prepared ``WindowLauncher`` per placement, per chunk
     its first tap row and crop start): CUDA events and busy time beside the
-    one-shot shell (``resize_place_window`` on the same rows), the parent
-    body (rebased taps per chunk), ``F.interpolate`` over the five whole
-    placements and the plain version, the bound, the host time per launch
-    of both forms, and the prepared chunks bit for bit against the one-shot
-    shell's and the plain version's; then a streamed and a banded job under
+    parent body (rebased taps per chunk), ``F.interpolate`` over the five
+    whole placements and the plain version, the bound, the host time per
+    launch, and the prepared chunks bit for bit against the plain
+    version's (and the parent's); then a streamed and a banded job under
     torch.profiler.  Returns the summed yardsticks."""
     import torch
     import imagestitching_tpu_torch as itt
@@ -1212,11 +1175,6 @@ def phase15_window_times(dev, smi, plan, opts, items, parent,
         for _, launch, crop, a, s_lo, valid, _, _ in chunks:
             launch(crop, a, s_lo, valid)
 
-    def oneshot(out=regions):
-        for idx, _, crop, a, s_lo, valid, taps, _ in chunks:
-            cuda_resize.resize_place_window(crop, *taps, out[idx], a, s_lo,
-                                            valid)
-
     def plain():
         for idx, _, crop, a, s_lo, valid, taps, _ in chunks:
             regions[idx][:valid] = cuda_resize.resize_place_window_ref(
@@ -1237,22 +1195,17 @@ def phase15_window_times(dev, smi, plan, opts, items, parent,
                 f()
 
     t = time_versions(kernel, plain, old, library, bound_ms(nbytes),
-                      device_reps=3, oneshot=oneshot, reps=5, inner=1)
+                      device_reps=3, reps=5, inner=1)
     # host time of a launch: 45 enqueues with the card ahead of the host
-    t.update(host_pair(kernel, oneshot, len(chunks), 5))
-    once = {i: torch.zeros_like(r) for i, r in regions.items()}
-    worst = ndiff = nparent = nonce = 0
+    t["host_us"] = launch_host_us(kernel, len(chunks), 5)
+    worst = ndiff = nparent = 0
     for idx, launch, crop, a, s_lo, valid, taps, _ in chunks:
         launch(crop, a, s_lo, valid)
-        cuda_resize.resize_place_window(crop, *taps, once[idx], a, s_lo,
-                                        valid)
         want = cuda_resize.resize_place_window_ref(crop, *taps, a, s_lo,
                                                    valid)
         d = (regions[idx][:valid].int() - want.int()).abs()
         worst = max(worst, int(d.max()))
         ndiff += int((d > 0).any(dim=2).sum())
-        nonce += int((once[idx][:valid] != regions[idx][:valid])
-                     .any(dim=2).sum())
     if old is not None:
         for (idx, launch, crop, a, s_lo, valid, _, _), f in zip(chunks,
                                                                 calls):
@@ -1262,7 +1215,6 @@ def phase15_window_times(dev, smi, plan, opts, items, parent,
                            .any(dim=2).sum())
     check(worst == 0 and ndiff == 0, f"config 4 windowed kernel vs plain "
           f"max |diff| {worst}, {ndiff} differing pixels (must be exact)")
-    check(nonce == 0, f"config 4: {nonce} pixels unlike the one-shot shell")
     check(nparent == 0, f"config 4: {nparent} pixels unlike the parent body")
     t["bound_ms"] = bound_ms(nbytes)
     t["bytes"] = nbytes
@@ -1271,20 +1223,18 @@ def phase15_window_times(dev, smi, plan, opts, items, parent,
     say(f"phase15 windowed times over config 4's {len(chunks)} chunks of "
         f"{band_rows} rows (crop {tuple(crop0.shape)} -> region "
         f"{band_rows}x{regions[chunks[0][0]].shape[1]}x3; ms per job, CUDA "
-        f"events median of 5 in two rounds plain prepared one-shot parent "
+        f"events median of 5 in two rounds plain prepared parent "
         f"F.interpolate and back; in brackets the profiler's device busy "
         f"time) on {smi}: prepared {t['kernel_ms']:.4f} "
-        f"({_fmt(t['kernel_busy'])}) one-shot {t['oneshot_ms']:.4f} "
-        f"({_fmt(t['oneshot_busy'])}) parent {_fmt(t['parent_ms'])} "
+        f"({_fmt(t['kernel_busy'])}) parent {_fmt(t['parent_ms'])} "
         f"({_fmt(t['parent_busy'])}) F.interpolate of the 5 whole "
         f"placements {t['library_ms']:.4f} ({_fmt(t['library_busy'])}) plain "
         f"{t['plain_ms']:.4f} ({_fmt(t['plain_busy'])}) bound "
         f"{t['bound_ms']:.4f} ({nbytes} bytes) | host us a launch (5 jobs "
         f"of {len(chunks)} launches, no synchronise among them) prepared "
-        f"{t['host_us']:.2f} one-shot {t['oneshot_host_us']:.2f} | prepared "
-        f"vs plain max |diff| {worst}, differing px {ndiff}, unlike the "
-        f"one-shot shell {nonce}, unlike parent {nparent}")
-    del chunks, regions, other, libs, once
+        f"{t['host_us']:.2f} | prepared vs plain max |diff| {worst}, "
+        f"differing px {ndiff}, unlike parent {nparent}")
+    del chunks, regions, other, libs
 
     canvas_bytes = 3 * plan.canvas_w * plan.canvas_h
     for strategy, budget in (
@@ -1487,18 +1437,7 @@ def _zero_counts():
     from imagestitching_tpu_torch.ops import cuda_resize
 
     cuda_resize.launches = cuda_resize.batch_launches = 0
-    cuda_resize.window_launches = cuda_resize.oneshot_launches = 0
-
-
-def _prepared_counts(where):
-    """``_launch_counts()`` of a main-path run, which must have launched
-    through the prepared forms only: no one-shot shell since the counts
-    were set to 0."""
-    from imagestitching_tpu_torch.ops import cuda_resize
-
-    check(cuda_resize.oneshot_launches == 0, f"{where}: "
-          f"{cuda_resize.oneshot_launches} launches through a one-shot shell")
-    return _launch_counts()
+    cuda_resize.window_launches = 0
 
 
 def _times(m):
@@ -1558,7 +1497,7 @@ def phase16_overlapped(dev, smi, td, shapes=CONFIG4):
     t0 = time.perf_counter()
     out, m = itt.stitch(files, options=opts, return_metrics=True)
     cold = time.perf_counter() - t0
-    launched = _prepared_counts("overlapped")
+    launched = _launch_counts()
     check(m.strategy == "overlapped", f"9 JPEG files ran {m.strategy}")
     check(launched == (len(res), 0, 0), f"overlapped launches {launched}, "
           f"expected ({len(res)}, 0, 0)")
@@ -1605,7 +1544,7 @@ def phase16_overlapped(dev, smi, td, shapes=CONFIG4):
     outb, mb_ = itt.stitch(files, options=opts, config=RuntimeConfig(
         device=str(dev), budget=budget), return_metrics=True)
     wall_b = time.perf_counter() - t0
-    launched_b = _prepared_counts("overlapped/banded")
+    launched_b = _launch_counts()
     check(mb_.strategy == "overlapped/banded", f"banded budget ran "
           f"{mb_.strategy}")
     check(launched_b == (0, 0, chunks), f"overlapped/banded launches "
@@ -1903,7 +1842,7 @@ def phase19_merge(dev, smi, screens=SCREENS):
     t0 = time.perf_counter()
     out, m = itt.stitch(shots, options=opts, config=cfg, return_metrics=True)
     wall = time.perf_counter() - t0
-    launched = _prepared_counts("merge")
+    launched = _launch_counts()
     pre = [shots[0]] + [s[shared:] for s in shots[1:]]
     want = itt.stitch(pre, options=StitchOptions(direction="vertical",
                                                  mode="min", gap=0),
@@ -1968,7 +1907,7 @@ def phase20_grid(dev, smi, shapes=CONFIG4):
             out, m = itt.stitch_grid(items, cols=3, options=opts, config=cfg,
                                      valign=valign, return_metrics=True)
             wall = time.perf_counter() - t0
-            launched = _prepared_counts(f"grid {valign}")
+            launched = _launch_counts()
             expect = [len(resampled(p)) for p in gplan.col_plans]
             check(per_col == expect and launched == (sum(expect), 0, 0),
                   f"grid {valign}: launches per column {per_col} "
@@ -2134,7 +2073,7 @@ def phase22_space_sharded(dev, smi, plan, opts, imgs, items, ref):
         out, m = itt.stitch(items, options=opts, config=cfg,
                             return_metrics=True)
         wall = time.perf_counter() - t0
-        launched = _prepared_counts("space-sharded")
+        launched = _launch_counts()
         peak = torch.cuda.max_memory_allocated(dev) - base
         check(m.strategy == "space-sharded", f"(1, 4) mesh ran {m.strategy}")
         check(launched == (0, 0, len(pairs)), f"space-sharded launches "
@@ -2288,7 +2227,7 @@ def phase23_jobs_mesh(dev, smi, plan, stacks, items3, opts3):
     t0 = time.perf_counter()
     got = bs(stacks)
     wall4 = time.perf_counter() - t0
-    launched = _prepared_counts("jobs mesh")
+    launched = _launch_counts()
     check(launched == (0, 4 * n_res, 0), f"jobs mesh launches {launched}, "
           f"expected (0, {4 * n_res}, 0)")
     check(np.array_equal(got, single), "jobs mesh batch differs from the "
@@ -2561,8 +2500,8 @@ def phase24_staged(dev, smi, cases, parent=None):
 
 def phase25_fresh(smi):
     """Kernels #1-#3 at their main-path sites (config 3, config 5 at B =
-    64, config 4-EXIF's 45 banded chunks), prepared and one-shot, in a
-    fresh process: ``python -m imagestitching_tpu_torch.tools.
+    64, config 4-EXIF's 45 banded chunks), launched prepared, in a fresh
+    process: ``python -m imagestitching_tpu_torch.tools.
     profile_resize``, which must exit 0 with parity.  Late in this long
     process the profiler drops GPU records (#2's busy time read "not
     measured" there); a fresh process records every launch.  Returns the
@@ -2579,12 +2518,11 @@ def phase25_fresh(smi):
     check(rec["ok"], f"profile_resize parity {rec['parity']}")
     rows = []
     for key, t in rec["sites"].items():
-        pr, os_ = t["prepared"], t["oneshot"]
+        pr = t["prepared"]
         rows.append(f"{key} ({t['launches']} launches): prepared "
                     f"{pr['ms']:.4f} ({_fmt(pr['busy_ms'])}, "
-                    f"{pr['host_us']:.2f} us a launch) one-shot "
-                    f"{os_['ms']:.4f} ({_fmt(os_['busy_ms'])}, "
-                    f"{os_['host_us']:.2f} us) bound {t['bound_ms']:.4f}")
+                    f"{pr['host_us']:.2f} us a launch) bound "
+                    f"{t['bound_ms']:.4f}")
     say(f"phase25 python -m imagestitching_tpu_torch.tools.profile_resize "
         f"--reps 10 --rounds 3: exit 0 in {sub_s:.1f} s (a fresh process), "
         f"parity {rec['parity']} | ms a job by CUDA events (busy; host) "
@@ -2787,7 +2725,7 @@ def main() -> None:
         phases.append(f"{m.prepare_s:.4f}/{m.compute_s:.4f}/"
                       f"{m.readback_s:.4f}")
         check(m.strategy == "resident", f"strategy {m.strategy!r}")
-    launches_main = _prepared_counts("config 3")[0]
+    launches_main = _launch_counts()[0]
     check(deltas == [per_job] * 3, f"kernel launches per job {deltas}, "
           f"expected {per_job}")
     check(cuda_resize.batch_launches == 0, "the single-job path launched "
@@ -2888,7 +2826,7 @@ def main() -> None:
     r24 = phase24_staged(dev, smi, cases, parent_staged)
     marks.append(("24", time.perf_counter()))
 
-    # ---- phase 25: #1-#3 prepared and one-shot in a fresh process
+    # ---- phase 25: #1-#3 prepared in a fresh process
     r25 = phase25_fresh(smi)["sites"]
     marks.append(("25", time.perf_counter()))
     say("seconds by phase (host clock): " + " ".join(
@@ -2910,16 +2848,11 @@ def main() -> None:
                 "parent_busy_ms": r(t["parent_busy"]), **by_path}
 
     def prepared(t, site):
-        """#1-#3's one-shot shell beside the prepared launch in the same
-        phase, host us a launch of both, and the fresh process's numbers
-        at the site (phase 25)."""
-        f = r25[site]
-        return {"oneshot_ms": r(t["oneshot_ms"]),
-                "oneshot_busy_ms": r(t["oneshot_busy"]),
-                "host_us": r(t["host_us"]),
-                "oneshot_host_us": r(t["oneshot_host_us"]),
-                "fresh": {form: {k: r(v) for k, v in f[form].items()}
-                          for form in ("prepared", "oneshot")}}
+        """#1-#3's host us a launch in the phase, and the fresh process's
+        numbers at the site (phase 25)."""
+        return {"host_us": r(t["host_us"]),
+                "fresh": {"prepared": {k: r(v) for k, v in
+                                       r25[site]["prepared"].items()}}}
 
     # "launches": the count on the kernel's first path (phase 4, 9 or 13's
     # banded run); "launches_overlapped": on the overlapped scheduler's run
@@ -2932,9 +2865,8 @@ def main() -> None:
     # "space_sharded" its yardsticks at one band window; #4: "launches" on
     # phase 24's profiler run, its yardsticks with uint8 bands, "bf16"
     # with bf16 bands, "kernel1" #1 on the same slot; #1-#3: "ms" and
-    # "busy_ms" are the prepared launch's, "oneshot_ms" / "oneshot_busy_ms"
-    # the one-shot shell's in the same phase, "host_us" /
-    # "oneshot_host_us" host us a launch, "fresh" phase 25's numbers
+    # "busy_ms" are the prepared launch's, "host_us" host us a launch,
+    # "fresh" phase 25's numbers
     record = {"kernels": [
         entry("resize_place", REPLACES, launches_main,
               max(worst_all, t6["worst"], t21["worst"]), t6,

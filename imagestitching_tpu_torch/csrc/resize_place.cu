@@ -72,13 +72,12 @@
 // passes the chunk's slice of them and row_shift, the chunk's crop start,
 // which the body subtracts from every row tap start.
 //
-// Each form has a prepared launch: resize_place_prepare checks a launch,
+// Each form is launched prepared: resize_place_prepare checks a launch,
 // maps its orientation and picks its tile once into a PlaceArgs, and
 // resize_place_run (#1, #2: the source and canvas pointers) or
 // resize_place_window_run (#3: the crop pointer and the chunk's rows)
 // launches it with one call's worth of host work.  The SM count and the
-// shared-memory attribute are set up once per device.  The one-shot
-// entries are prepare + run in one call.
+// shared-memory attribute are set up once per device.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -652,11 +651,11 @@ cudaError_t run(const PlaceArgs& a, const void* src, void* canvas,
 
 extern "C" {
 
-// The entries launch on `stream` and return the launch's cudaError_t (0 =
-// the launch was accepted).  They launch on the calling thread's current
-// device, which the caller sets to the device that holds the tensors and
-// `stream` (for a prepared launch, the device it was prepared on); the
-// current device is left as it was.  They do not synchronise and allocate
+// The run entries launch on `stream` and return the launch's cudaError_t
+// (0 = the launch was accepted).  They launch on the calling thread's
+// current device, which the caller sets to the device the launch was
+// prepared on, which holds the tensors and `stream`; the current device is
+// left as it was.  They do not synchronise and allocate
 // nothing.  All arrays are contiguous uint8 HWC.
 
 // sizeof(PlaceArgs), for the host's mirror of it
@@ -762,97 +761,6 @@ int resize_place_window_run(const PlaceArgs* a, const void* crop,
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run(*a, crop, a->canvas, row_start, row_shift,
                               n_rows, static_cast<cudaStream_t>(stream)));
-}
-
-// One-shot shells: prepare and run in one call.
-//
-// `batch` jobs (1 <= batch <= 65535, the grid's z limit) sharing one
-// placement's taps: job b's source starts src_stride bytes after job b-1's,
-// its canvas canvas_stride bytes after.  One launch for the whole batch.
-int resize_place_batch_launch(const void* src, int batch, int64_t src_stride,
-                              int64_t src_h, int64_t src_w, int channels,
-                              int orientation, const void* ri0,
-                              const void* rw, int n_rows, int k_rows,
-                              const void* ci0, const void* cw, int n_cols,
-                              int k_cols, void* canvas,
-                              int64_t canvas_stride, int64_t canvas_h,
-                              int64_t canvas_w, int64_t r0, int64_t c0,
-                              void* stream) {
-  PlaceArgs a = {};
-  a.ri0 = static_cast<const int32_t*>(ri0);
-  a.rw = static_cast<const float*>(rw);
-  a.ci0 = static_cast<const int32_t*>(ci0);
-  a.cw = static_cast<const float*>(cw);
-  a.src_h = src_h;
-  a.src_w = src_w;
-  a.src_stride = src_stride;
-  a.canvas_h = canvas_h;
-  a.canvas_w = canvas_w;
-  a.canvas_stride = canvas_stride;
-  a.r0 = r0;
-  a.c0 = c0;
-  a.channels = channels;
-  a.orientation = orientation;
-  a.batch = batch;
-  a.n_rows = n_rows;
-  a.tap_rows = n_rows;
-  a.k_rows = k_rows;
-  a.n_cols = n_cols;
-  a.k_cols = k_cols;
-  const int err = resize_place_prepare(&a);
-  return err != 0 ? err : resize_place_run(&a, src, canvas, stream);
-}
-
-// One job: src is (src_h, src_w, channels), canvas (canvas_h, canvas_w,
-// channels).
-int resize_place_launch(const void* src, int64_t src_h,
-                        int64_t src_w, int channels, int orientation,
-                        const void* ri0, const void* rw, int n_rows,
-                        int k_rows, const void* ci0, const void* cw,
-                        int n_cols, int k_cols, void* canvas,
-                        int64_t canvas_h, int64_t canvas_w, int64_t r0,
-                        int64_t c0, void* stream) {
-  return resize_place_batch_launch(src, 1, 0, src_h, src_w, channels,
-                                   orientation, ri0, rw, n_rows, k_rows, ci0,
-                                   cw, n_cols, k_cols, canvas, 0, canvas_h,
-                                   canvas_w, r0, c0, stream);
-}
-
-// One chunk of one placement (the banded strategy): crop is the oriented
-// source row window (crop_rows, width, channels), orientation already
-// applied; the n_rows x n_cols result goes to rows [0, n_rows) of region
-// (region_rows, n_cols, channels).  ri0/rw point at the chunk's first row
-// of the placement's row taps; row_shift (the crop's first row in the
-// oriented source) is subtracted from each row tap start.  Taps are clamped
-// to the crop, which the caller sizes to cover every tap of the chunk.
-int resize_place_window_launch(const void* crop, int64_t crop_rows,
-                               int64_t width, int channels, const void* ri0,
-                               const void* rw, int row_shift, int n_rows,
-                               int k_rows, const void* ci0, const void* cw,
-                               int n_cols, int k_cols, void* region,
-                               int64_t region_rows, void* stream) {
-  PlaceArgs a = {};
-  a.ri0 = static_cast<const int32_t*>(ri0);
-  a.rw = static_cast<const float*>(rw);
-  a.ci0 = static_cast<const int32_t*>(ci0);
-  a.cw = static_cast<const float*>(cw);
-  a.canvas = static_cast<uint8_t*>(region);
-  a.src_h = crop_rows;
-  a.src_w = width;
-  a.canvas_h = region_rows;
-  a.canvas_w = n_cols;
-  a.channels = channels;
-  a.orientation = 1;
-  a.batch = 1;
-  a.n_rows = n_rows;
-  a.tap_rows = n_rows;
-  a.k_rows = k_rows;
-  a.n_cols = n_cols;
-  a.k_cols = k_cols;
-  const int err = resize_place_prepare(&a);
-  return err != 0 ? err
-                  : resize_place_window_run(&a, crop, 0, row_shift, n_rows,
-                                            stream);
 }
 
 const char* resize_place_error_string(int code) {

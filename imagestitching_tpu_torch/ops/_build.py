@@ -132,30 +132,7 @@ def build() -> BuildInfo:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.resize_place_launch.argtypes = [
-        p, i64, i64, i32, i32,               # src, H, W, C, orientation
-        p, p, i32, i32,                      # ri0, rw, n_rows, k_rows
-        p, p, i32, i32,                      # ci0, cw, n_cols, k_cols
-        p, i64, i64, i64, i64,               # canvas, H, W, r0, c0
-        p]                                   # stream
-    lib.resize_place_launch.restype = i32
-    lib.resize_place_batch_launch.argtypes = [
-        p, i32, i64,                         # src, batch, src job stride
-        i64, i64, i32, i32,                  # H, W, C, orientation
-        p, p, i32, i32,                      # ri0, rw, n_rows, k_rows
-        p, p, i32, i32,                      # ci0, cw, n_cols, k_cols
-        p, i64,                              # canvas, canvas job stride
-        i64, i64, i64, i64,                  # canvas H, W, r0, c0
-        p]                                   # stream
-    lib.resize_place_batch_launch.restype = i32
-    lib.resize_place_window_launch.argtypes = [
-        p, i64, i64, i32,                    # crop, crop rows, width, C
-        p, p, i32, i32, i32,                 # ri0, rw, shift, rows, K
-        p, p, i32, i32,                      # ci0, cw, n_cols, k_cols
-        p, i64,                              # region, region rows
-        p]                                   # stream
-    lib.resize_place_window_launch.restype = i32
+    p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.resize_place_args_size.argtypes = []
     lib.resize_place_args_size.restype = i32
     lib.resize_place_prepare.argtypes = [p]             # PlaceArgs*

@@ -10,13 +10,7 @@ windowed call ``_WindowPlan.run_chunk`` (:868-875).  The kernels are
 launched by ``resize_place_one`` (#1), ``resize_place_batch`` (#2) and
 ``_jitted_call_static`` (#3).
 
-* :func:`resize_place` (one job), :func:`resize_place_batch` (B stacked jobs
-  sharing one placement's taps, one launch) and :func:`resize_place_window`
-  (one row chunk of a placement from a cropped, oriented source window) are
-  the kernels' wrappers.  For tensors on the CPU they run the plain version,
-  :func:`resize_place_ref`; for CUDA tensors they launch the kernel or raise.
-  There is no fallback between the two.
-* The main path launches the kernels prepared, as kernel #4's
+* The kernels launch prepared, as kernel #4's
   ``staged_resize.StagedLaunch`` does: the checks, the packing of a
   :class:`PlaceArgs` and the tile choice (``resize_place_prepare``) happen
   once, and each launch checks its tensors with a few compares and makes
@@ -24,12 +18,16 @@ launched by ``resize_place_one`` (#1), ``resize_place_batch`` (#2) and
   and one pair of source and canvas shapes, :class:`PlacementLauncher`
   holds one per pair seen, and :class:`WindowLauncher` is #3 for the many
   chunks of one placement (per chunk the crop, the chunk's first tap row
-  and the crop's start).  The three wrappers above are one-shot: prepare
-  and run in one C call.
+  and the crop's start).  For tensors on the CPU they run the plain
+  version, :func:`resize_place_ref`; for CUDA tensors they launch the
+  kernel or raise.  There is no fallback between the two.
+* :func:`resize_place` (one job), :func:`resize_place_batch` (B stacked jobs
+  sharing one placement's taps, one launch) and :func:`resize_place_window`
+  (one row chunk of a placement from a cropped, oriented source window)
+  make such a launch and call it once, as
+  ``staged_resize.resize_place_staged`` does for #4.
 * ``launches``, ``batch_launches`` and ``window_launches`` count kernel
-  launches, so a run can show that its main path went through the kernels;
-  ``oneshot_launches`` counts those of them that the one-shot wrappers
-  made.
+  launches, so a run can show that its main path went through the kernels.
 * :func:`draw_placement` is the one placement step: identity placements are
   slices of the oriented source (as at ``_stitch_jit`` and
   ``batch.py:44-50``), every other drawn placement is resampled by the
@@ -57,14 +55,12 @@ from ..runtime import spans
 from . import torch_compose
 from .assemble import job_channels, new_canvas, source_tensor
 
-#: Kernel launches by :func:`resize_place` in this process.
+#: Launches of kernel #1 (one job) in this process.
 launches = 0
-#: Kernel launches by :func:`resize_place_batch` in this process.
+#: Launches of kernel #2 (a batch of jobs) in this process.
 batch_launches = 0
-#: Kernel launches by :func:`resize_place_window` in this process.
+#: Launches of kernel #3 (a row chunk of a placement) in this process.
 window_launches = 0
-#: Of those launches, the ones the one-shot wrappers made.
-oneshot_launches = 0
 
 #: The batched kernel's z-grid bound (``gridDim.z``).
 MAX_BATCH = 65535
@@ -153,81 +149,6 @@ def _check(batched: bool, src: torch.Tensor, ri0: torch.Tensor,
                          f"the {canvas_h}x{canvas_w} canvas")
 
 
-def _place(entry: str, src: torch.Tensor, orientation: int,
-           ri0: torch.Tensor, rw: torch.Tensor, ci0: torch.Tensor,
-           cw: torch.Tensor, canvas: torch.Tensor, r0: int, c0: int) -> bool:
-    """The body of kernels #1 and #2 (``entry`` is ``one`` or ``batch``);
-    True when it launched a kernel."""
-    _check(entry == "batch", src, ri0, rw, ci0, cw, canvas, r0, c0)
-    if orientation not in range(9):
-        raise ValueError(f"invalid EXIF orientation {orientation}")
-    n_rows, n_cols = ri0.shape[0], ci0.shape[0]
-    if n_rows == 0 or n_cols == 0:
-        return False
-    if src.device.type == "cpu":
-        canvas[..., r0:r0 + n_rows, c0:c0 + n_cols, :] = resize_place_ref(
-            src, orientation, ri0, rw, ci0, cw)
-        return False
-    if src.device.type != "cuda":
-        raise ValueError(f"resize_place runs on cpu or cuda, not {src.device}")
-    from . import _build
-
-    lib = _build.load()
-    ptr = ctypes.c_void_p
-    h, w, c = src.shape[-3:]
-    taps = (ptr(ri0.data_ptr()), ptr(rw.data_ptr()), n_rows, rw.shape[1],
-            ptr(ci0.data_ptr()), ptr(cw.data_ptr()), n_cols, cw.shape[1])
-    canvas_hw = (canvas.shape[-3], canvas.shape[-2], r0, c0)
-
-    def start():
-        stream = ptr(torch.cuda.current_stream().cuda_stream)
-        if entry == "batch":
-            return lib.resize_place_batch_launch(
-                ptr(src.data_ptr()), src.shape[0], src.stride(0), h, w, c,
-                orientation, *taps, ptr(canvas.data_ptr()), canvas.stride(0),
-                *canvas_hw, stream)
-        return lib.resize_place_launch(
-            ptr(src.data_ptr()), h, w, c, orientation, *taps,
-            ptr(canvas.data_ptr()), *canvas_hw, stream)
-
-    # the launch goes to the current device: make it the tensors' for the
-    # call where it is not
-    if torch.cuda.current_device() == src.device.index:
-        err = start()
-    else:
-        with torch.cuda.device(src.device):
-            err = start()
-    if err != 0:
-        raise _launch_error(lib, "kernel launch", err)
-    return True
-
-
-def resize_place(src: torch.Tensor, orientation: int, ri0: torch.Tensor,
-                 rw: torch.Tensor, ci0: torch.Tensor, cw: torch.Tensor,
-                 canvas: torch.Tensor, r0: int, c0: int) -> None:
-    """Resample the raw HWC uint8 ``src`` (EXIF ``orientation``) with the
-    K-tap row taps ``(ri0, rw)`` and column taps ``(ci0, cw)`` and store the
-    uint8 result into ``canvas[r0:r0+n_rows, c0:c0+n_cols]`` in place."""
-    global launches, oneshot_launches
-    if _place("one", src, orientation, ri0, rw, ci0, cw, canvas, r0, c0):
-        launches += 1
-        oneshot_launches += 1
-
-
-def resize_place_batch(src_bhwc: torch.Tensor, orientation: int,
-                       ri0: torch.Tensor, rw: torch.Tensor, ci0: torch.Tensor,
-                       cw: torch.Tensor, canvas_bhwc: torch.Tensor, r0: int,
-                       c0: int) -> None:
-    """:func:`resize_place` for B stacked jobs that share the placement:
-    ``src_bhwc (B, H, W, C)``, ``canvas_bhwc (B, canvas_h, canvas_w, C)``,
-    one kernel launch for the whole batch."""
-    global batch_launches, oneshot_launches
-    if _place("batch", src_bhwc, orientation, ri0, rw, ci0, cw, canvas_bhwc,
-              r0, c0):
-        batch_launches += 1
-        oneshot_launches += 1
-
-
 def _launch_error(lib, what: str, err: int) -> RuntimeError:
     return RuntimeError(f"resize_place {what} failed: "
                         + lib.resize_place_error_string(err).decode())
@@ -270,60 +191,6 @@ def _window_rows(ri0: torch.Tensor, region: torch.Tensor, row_start: int,
                          f"{ri0.shape[0]} into a region of "
                          f"{region.shape[0]}")
     return n_rows
-
-
-def resize_place_window(crop: torch.Tensor, ri0: torch.Tensor,
-                        rw: torch.Tensor, ci0: torch.Tensor, cw: torch.Tensor,
-                        region: torch.Tensor, row_start: int = 0,
-                        row_shift: int = 0,
-                        n_rows: Optional[int] = None) -> None:
-    """Resample one row chunk of a placement: ``crop`` is the oriented HWC
-    uint8 source row window, whose first row is row ``row_shift`` of the
-    oriented source; ``(ri0, rw)`` the row taps, of which rows
-    ``[row_start, row_start + n_rows)`` are the chunk's (default: all from
-    ``row_start``); ``(ci0, cw)`` the placement's column taps.  The uint8
-    result goes to ``region[:n_rows]`` of the ``(rows, n_cols, C)`` region
-    buffer, in place.  One-shot: the banded rung's chunks go through
-    :class:`WindowLauncher`."""
-    global window_launches, oneshot_launches
-    if crop.ndim != 3:
-        raise ValueError(f"crop {tuple(crop.shape)} must be HWC")
-    _window_checks(ri0, rw, ci0, cw, region, crop.shape)
-    if crop.dtype != torch.uint8 or crop.device != region.device \
-            or not crop.is_contiguous():
-        raise ValueError(f"crop {crop.dtype} on {crop.device} must be a "
-                         f"contiguous uint8 tensor on {region.device}")
-    n_rows = _window_rows(ri0, region, row_start, n_rows)
-    if n_rows == 0 or ci0.shape[0] == 0:
-        return
-    if crop.device.type == "cpu":
-        region[:n_rows] = resize_place_window_ref(crop, ri0, rw, ci0, cw,
-                                                  row_start, row_shift,
-                                                  n_rows)
-        return
-    from . import _build
-
-    lib = _build.load()
-    ptr, k = ctypes.c_void_p, rw.shape[1]
-
-    def start():
-        return lib.resize_place_window_launch(
-            ptr(crop.data_ptr()), *crop.shape,
-            ptr(ri0.data_ptr() + 4 * row_start),
-            ptr(rw.data_ptr() + 4 * row_start * k), row_shift, n_rows, k,
-            ptr(ci0.data_ptr()), ptr(cw.data_ptr()), ci0.shape[0],
-            cw.shape[1], ptr(region.data_ptr()), region.shape[0],
-            ptr(torch.cuda.current_stream().cuda_stream))
-
-    if torch.cuda.current_device() == crop.device.index:
-        err = start()
-    else:       # the launch goes to the current device
-        with torch.cuda.device(crop.device):
-            err = start()
-    if err != 0:
-        raise _launch_error(lib, "kernel launch", err)
-    window_launches += 1
-    oneshot_launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -379,8 +246,8 @@ class PlaceLaunch:
     c0:c0+n_cols, :]`` in place, once per call, for any source and canvas
     of the shapes, dtype and device of ``src`` and ``canvas``, contiguous.
 
-    Everything :func:`resize_place` checks is checked here, once.  On the
-    card the launch is packed into :class:`PlaceArgs`, whose tile
+    The launch's arguments are checked here, once.  On the card the
+    launch is packed into :class:`PlaceArgs`, whose tile
     ``resize_place_prepare`` picks (:attr:`args`); a call compares its
     tensors with what was prepared and makes one ``ctypes`` call.  On the
     CPU a call runs the plain version.  The launch holds references to the
@@ -550,6 +417,49 @@ class WindowLauncher:
             raise _launch_error(self._lib, "kernel launch", err)
         window_launches += 1
 
+
+def resize_place(src: torch.Tensor, orientation: int, ri0: torch.Tensor,
+                 rw: torch.Tensor, ci0: torch.Tensor, cw: torch.Tensor,
+                 canvas: torch.Tensor, r0: int, c0: int) -> None:
+    """Resample the raw HWC uint8 ``src`` (EXIF ``orientation``) with the
+    K-tap row taps ``(ri0, rw)`` and column taps ``(ci0, cw)`` and store the
+    uint8 result into ``canvas[r0:r0+n_rows, c0:c0+n_cols]`` in place: a
+    :class:`PlaceLaunch` made and called once."""
+    if canvas.ndim != 3:
+        raise ValueError("src and canvas must be HWC")
+    PlaceLaunch(src, orientation, ri0, rw, ci0, cw, canvas, r0,
+                c0)(src, canvas)
+
+
+def resize_place_batch(src_bhwc: torch.Tensor, orientation: int,
+                       ri0: torch.Tensor, rw: torch.Tensor, ci0: torch.Tensor,
+                       cw: torch.Tensor, canvas_bhwc: torch.Tensor, r0: int,
+                       c0: int) -> None:
+    """:func:`resize_place` for B stacked jobs that share the placement:
+    ``src_bhwc (B, H, W, C)``, ``canvas_bhwc (B, canvas_h, canvas_w, C)``,
+    one kernel launch for the whole batch."""
+    if canvas_bhwc.ndim != 4:
+        raise ValueError("src and canvas must be BHWC")
+    PlaceLaunch(src_bhwc, orientation, ri0, rw, ci0, cw, canvas_bhwc, r0,
+                c0)(src_bhwc, canvas_bhwc)
+
+
+def resize_place_window(crop: torch.Tensor, ri0: torch.Tensor,
+                        rw: torch.Tensor, ci0: torch.Tensor, cw: torch.Tensor,
+                        region: torch.Tensor, row_start: int = 0,
+                        row_shift: int = 0,
+                        n_rows: Optional[int] = None) -> None:
+    """Resample one row chunk of a placement: ``crop`` is the oriented HWC
+    uint8 source row window, whose first row is row ``row_shift`` of the
+    oriented source; ``(ri0, rw)`` the row taps, of which rows
+    ``[row_start, row_start + n_rows)`` are the chunk's (default: all from
+    ``row_start``); ``(ci0, cw)`` the placement's column taps.  The uint8
+    result goes to ``region[:n_rows]`` of the ``(rows, n_cols, C)`` region
+    buffer, in place: a :class:`WindowLauncher` made and called once."""
+    WindowLauncher(ri0, rw, ci0, cw, region, crop.shape)(crop, row_start,
+                                                         row_shift, n_rows)
+
+
 # ---------------------------------------------------------------------------
 # The placement loop: one job, or a batch of jobs of one plan
 # ---------------------------------------------------------------------------
@@ -642,109 +552,44 @@ def stitch(plan: LayoutPlan, images: Sequence[np.ndarray], device,
     return canvas
 
 
-def _check_rows(p: Placement, hwc: Sequence[int], dtype: torch.dtype,
-                channels: int, where: str) -> None:
-    """A slot's ``(H, W, C)`` rows against the plan and the batch's
-    channels (the JAX ``BatchedStitch.__call__``'s checks and messages)."""
-    if tuple(hwc[:2]) != (p.raw_h, p.raw_w):
-        raise ValueError(f"{where}: got {hwc[1]}x{hwc[0]}, "
-                         f"plan says {p.raw_w}x{p.raw_h}")
-    if dtype != torch.uint8:
-        raise ValueError("batched stitch expects uint8")
-    if hwc[2] != channels or channels not in (1, 3):
-        raise ValueError(f"{where}: {hwc[2]} channels, slot 0 has "
-                         f"{channels} (1 or 3, equal)")
-
-
-def _host_tensor(arr) -> torch.Tensor:
-    return (arr if isinstance(arr, torch.Tensor)
-            else torch.from_numpy(np.ascontiguousarray(arr)))
-
-
-def _stack_tensors(plan: LayoutPlan, stacks: Sequence, device: torch.device,
-                   rows: Optional[int] = None,
-                   channels: Optional[int] = None
-                   ) -> Tuple[List[torch.Tensor], bool]:
-    """Slot inputs as contiguous ``(B, H_i, W_i, C)`` uint8 tensors on
-    ``device``, checked against the plan, and whether they came as per-job
-    arrays.
-
-    A slot is either its whole stack, a numpy array or tensor of shape
-    ``(B, H_i, W_i, C)``, uploaded in one copy; or a sequence of per-job
-    ``(H_i, W_i, C)`` arrays, each copied from where it lies into its row
-    of a stack made on ``device``, with ``rows`` rows (default: one a job)
-    and those past the jobs zero.  All slots take the same form.  Only
-    per-job slots read ``rows`` and ``channels`` (default: the first
-    job's), the channel count every job must have."""
-    if len(stacks) != len(plan.placements):
-        raise ValueError("image-slot count does not match plan")
-    per_job = [not isinstance(s, (np.ndarray, torch.Tensor)) for s in stacks]
-    if not any(per_job):
-        out, batch, channels = [], None, None
-        for arr, p in zip(stacks, plan.placements):
-            arr = _host_tensor(arr)
-            if batch is None and arr.ndim == 4:
-                batch, channels = arr.shape[0], arr.shape[3]
-            if arr.ndim != 4 or arr.shape[0] != batch:
-                raise ValueError(f"slot {p.index}: expected (B={batch}, H, "
-                                 f"W, C), got {tuple(arr.shape)}")
-            _check_rows(p, arr.shape[1:], arr.dtype, channels,
-                        f"slot {p.index}")
-            out.append(arr.to(device).contiguous())
-        return out, False
-    if not all(per_job):
-        raise ValueError("slots mix whole stacks and per-job arrays")
-    jobs = len(stacks[0])
-    rows = jobs if rows is None else rows
-    if any(len(s) != jobs for s in stacks) or jobs > rows:
-        raise ValueError(f"slots hold {sorted({len(s) for s in stacks})} "
-                         f"jobs, expected one count of at most {rows}")
-    if channels is None:
-        if not jobs:
-            raise ValueError("no job to take the channel count from")
-        channels = _host_tensor(stacks[0][0]).shape[-1]
+def _stack_tensors(plan: LayoutPlan, slots: Sequence[Sequence[torch.Tensor]],
+                   device: torch.device, rows: int,
+                   channels: int) -> List[torch.Tensor]:
+    """Each slot's jobs' ``(H_i, W_i, C)`` uint8 tensors, as the caller
+    checked them, copied from where they lie into their rows of a ``(rows,
+    H_i, W_i, C)`` stack made on ``device``.  The rows past the jobs (a
+    mesh's padding, every row of a warm-up) are zero jobs."""
     out = []
-    for seq, p in zip(stacks, plan.placements):
+    for jobs, p in zip(slots, plan.placements):
         dst = torch.empty((rows, p.raw_h, p.raw_w, channels),
                           dtype=torch.uint8, device=device)
-        for i, arr in enumerate(seq):
-            arr = _host_tensor(arr)
-            if arr.ndim != 3:
-                raise ValueError(f"slot {p.index}, job {i}: expected (H, W, "
-                                 f"C), got {tuple(arr.shape)}")
-            _check_rows(p, arr.shape, arr.dtype, channels,
-                        f"slot {p.index}, job {i}")
+        for i, arr in enumerate(jobs):
             dst[i].copy_(arr)
-        # the rows of no job (a mesh's padding) are zero jobs
-        dst[jobs:].zero_()
+        dst[len(jobs):].zero_()
         out.append(dst)
-    return out, True
+    return out
 
 
-def stitch_batch(plan: LayoutPlan, stacks: Sequence, device,
-                 plain: bool = False,
+def stitch_batch(plan: LayoutPlan, slots: Sequence[Sequence[torch.Tensor]],
+                 device, rows: int, channels: int, plain: bool = False,
                  steps: Optional[Sequence[Optional[_Step]]] = None,
-                 card: int = 0, rows: Optional[int] = None,
-                 channels: Optional[int] = None) -> torch.Tensor:
-    """B jobs of one plan on ``device``: ``stacks[i]`` is image slot i's
-    ``(B, H_i, W_i, C)`` uint8 stack (numpy or tensor), or the sequence of
-    its jobs' ``(H_i, W_i, C)`` arrays, copied into a stack of ``rows``
-    rows on ``device`` (:func:`_stack_tensors`); returns the
-    ``(B, canvas_h, canvas_w, C)`` uint8 canvas tensor.  One kernel launch
-    per resampled placement for the whole batch.  ``steps`` (from
+                 card: int = 0) -> torch.Tensor:
+    """Up to ``rows`` jobs of one plan on ``device``: ``slots[i]`` is image
+    slot i's jobs' ``(H_i, W_i, C)`` uint8 tensors, ``C = channels``, as
+    ``parallel.batch.BatchedStitch`` checked them, copied into a stack of
+    ``rows`` rows on ``device`` (:func:`_stack_tensors`); returns the
+    ``(rows, canvas_h, canvas_w, C)`` uint8 canvas tensor.  One kernel
+    launch per resampled placement for the whole batch.  ``steps`` (from
     :func:`plan_steps`) lets a caller hold its taps; work is enqueued on the
     current stream and the caller synchronises.  ``card``, the batch's
-    index on a mesh's ``jobs`` axis, is counted on its spans; the upload
-    also counts ``direct``, 1 where the rows came from per-job arrays."""
+    index on a mesh's ``jobs`` axis, is counted on its spans."""
     device = torch.device(device)
     with spans.span("batch.h2d") as s:
         s.counts = {"card": card}
-        srcs, direct = _stack_tensors(plan, stacks, device, rows, channels)
-        s.counts["direct"] = int(direct)
+        srcs = _stack_tensors(plan, slots, device, rows, channels)
     with spans.span("batch.draw", start_ns=s.end_ns) as draw:
         draw.counts = {"card": card}
-        canvas = new_canvas(plan, srcs[0].shape[3], device,
-                            (srcs[0].shape[0],))
+        canvas = new_canvas(plan, channels, device, (rows,))
         _compose(plan, srcs, canvas,
                  plan_steps(plan, device) if steps is None else steps, plain)
     return canvas

@@ -24,19 +24,19 @@ JAX class's ``jax.jit``, ``ensure_compile_cache`` and
 ``check_plan_feasible`` (the gather kernel has no ``Infeasible``) have no
 twin.
 
-A slot comes as its whole ``(B, H, W, C)`` stack, uploaded in one copy, or
-as its jobs' own ``(H, W, C)`` arrays, each copied straight into its row of
-the shard's stack on the device, with rows past the jobs zero-filled there:
-the server hands its jobs' arrays, so a flush builds no host stack.
+A slot is the sequence of its jobs' own ``(H, W, C)`` uint8 arrays or
+tensors (a ``(b, H, W, C)`` stack is one: indexing it gives the rows).
+``BatchedStitch.__call__`` checks them once, before the batch is split into
+shards; each job is copied straight into its row of the shard's stack on
+the device, and rows past the jobs are zero-filled there.  The server hands
+its jobs' arrays, so a flush builds no host stack.
 
 A call is timed as spans (:mod:`..runtime.spans`): per shard ``batch.h2d``
 (the upload of its stacks) and ``batch.draw`` (the enqueue of its canvas
 and placements), then per device ``batch.sync`` (the wait for the kernels)
 and per shard ``batch.readback`` (the copy into the host array).  Each
 carries the count ``card``: the shard's index on the ``jobs`` axis (0
-without a mesh); a device's ``batch.sync`` carries its first shard's.  A
-``batch.h2d`` also counts ``direct``: 1 where its rows were copied from
-per-job arrays, 0 where whole stacks were uploaded.
+without a mesh); a device's ``batch.sync`` carries its first shard's.
 """
 
 from __future__ import annotations
@@ -97,54 +97,69 @@ class BatchedStitch:
         cards, 1 on a mesh that repeats one device."""
         return len(self._first_card)
 
-    def _shard(self, card: int, stacks: Sequence) -> torch.Tensor:
+    def _shard(self, card: int,
+               slots: Sequence[Sequence[torch.Tensor]]) -> torch.Tensor:
         device, (lo, hi) = self.shards[card]
-        return cuda_resize.stitch_batch(self.plan, stacks, device,
+        return cuda_resize.stitch_batch(self.plan, slots, device, hi - lo,
+                                        self.channels,
                                         plain=self.engine == "torch",
-                                        steps=self._steps[device], card=card,
-                                        rows=hi - lo, channels=self.channels)
+                                        steps=self._steps[device], card=card)
 
-    def run_shards(self, stacks: Sequence) -> List[torch.Tensor]:
+    def run_shards(self, slots: Sequence[Sequence[torch.Tensor]]
+                   ) -> List[torch.Tensor]:
         """Enqueue every jobs shard: the ``(b, canvas_h, canvas_w, C)``
-        canvas tensor of each, on its own device, in shard order.  A slot
-        given as per-job arrays gives each shard the jobs in its rows,
-        which may be fewer than its rows or none.  The caller
-        synchronises."""
-        return [self._shard(k, [s[lo:hi] for s in stacks])
+        canvas tensor of each, on its own device, in shard order.  Each
+        slot is its jobs' ``(H, W, C)`` tensors as :meth:`__call__` checks
+        them; each shard takes the jobs in its rows, which may be fewer
+        than its rows or none.  The caller synchronises."""
+        return [self._shard(k, [s[lo:hi] for s in slots])
                 for k, (_, (lo, hi)) in enumerate(self.shards)]
 
     def warm(self) -> None:
-        """Run once on zero inputs made on each shard's device, then fetch
-        one element of each: no host-to-device staging of B copies of every
-        input and no full-canvas readback."""
-        outs = [self._shard(k, [torch.zeros((hi - lo, p.raw_h, p.raw_w,
-                                             self.channels),
-                                            dtype=torch.uint8, device=d)
-                                for p in self.plan.placements])
-                for k, (d, (lo, hi)) in enumerate(self.shards)]
+        """Run each shard once with no job, so that every row is a zero job
+        filled on its device, then fetch one element of each: no
+        host-to-device staging and no full-canvas readback."""
+        outs = self.run_shards([[] for _ in self.plan.placements])
         for out in outs:
             out[:1, :1, :1, :1].cpu()
 
     def __call__(self, stacked_images: Sequence) -> np.ndarray:
-        """stacked_images[i], image slot i: its (B, H_i, W_i, C) uint8
-        stack, or the sequence of its b <= B jobs' (H_i, W_i, C) uint8
-        arrays, each copied straight into its row on the device (rows b to
-        B are zero jobs); returns the (B, canvas_h, canvas_w, C) uint8
-        canvases."""
+        """stacked_images[i], image slot i: the sequence of its b <= B
+        jobs' (H_i, W_i, C) uint8 arrays or tensors (a (b, H_i, W_i, C)
+        stack is one), each copied straight into its row on the device
+        (rows b to B are zero jobs); returns the (B, canvas_h, canvas_w, C)
+        uint8 canvases.  Every check happens here, before the batch is
+        split into shards (the JAX ``BatchedStitch.__call__``'s checks and
+        messages)."""
         if len(stacked_images) != len(self.plan.placements):
             raise ValueError("image-slot count does not match plan")
-        for arr, p in zip(stacked_images, self.plan.placements):
-            if not isinstance(arr, (np.ndarray, torch.Tensor)):
-                if len(arr) > self.batch_size:
-                    raise ValueError(f"slot {p.index}: {len(arr)} jobs for "
-                                     f"B={self.batch_size}")
-                continue
-            shape = tuple(arr.shape)
-            if len(shape) != 4 or shape[0] != self.batch_size:
-                raise ValueError(
-                    f"slot {p.index}: expected (B={self.batch_size}, H, W, C),"
-                    f" got {shape}")
-        outs = self.run_shards(stacked_images)
+        counts = sorted({len(s) for s in stacked_images})
+        if len(counts) > 1 or counts[0] > self.batch_size:
+            raise ValueError(f"slots hold {counts} jobs, expected one count "
+                             f"of at most B={self.batch_size}")
+        slots = []
+        for seq, p in zip(stacked_images, self.plan.placements):
+            jobs = [arr if isinstance(arr, torch.Tensor)
+                    else torch.from_numpy(np.ascontiguousarray(arr))
+                    for arr in seq]
+            for i, arr in enumerate(jobs):
+                where = f"slot {p.index}, job {i}"
+                if arr.ndim != 3:
+                    raise ValueError(f"{where}: expected (H, W, C), got "
+                                     f"{tuple(arr.shape)}")
+                if tuple(arr.shape[:2]) != (p.raw_h, p.raw_w):
+                    raise ValueError(f"{where}: got {arr.shape[1]}x"
+                                     f"{arr.shape[0]}, plan says "
+                                     f"{p.raw_w}x{p.raw_h}")
+                if arr.dtype != torch.uint8:
+                    raise ValueError("batched stitch expects uint8")
+                if arr.shape[2] != self.channels \
+                        or self.channels not in (1, 3):
+                    raise ValueError(f"{where}: {arr.shape[2]} channels, the "
+                                     f"batch has {self.channels} (1 or 3, "
+                                     f"equal)")
+            slots.append(jobs)
+        outs = self.run_shards(slots)
         for d, card in self._first_card.items():
             with spans.span("batch.sync") as s:
                 s.counts = {"card": card}
@@ -162,9 +177,8 @@ class BatchedStitch:
 def stitch_batch(plan: LayoutPlan, stacked_images: Sequence[np.ndarray],
                  engine: str = "auto", device="cuda",
                  mesh: Optional[DeviceMesh] = None) -> np.ndarray:
-    """One-shot :class:`BatchedStitch` over ``stacked_images``."""
-    shape = tuple(stacked_images[0].shape)
-    if len(shape) != 4:
-        raise ValueError(f"slot 0: expected (B, H, W, C), got {shape}")
-    return BatchedStitch(plan, shape[0], shape[3], engine, device,
+    """One-shot :class:`BatchedStitch` over ``stacked_images``, whose slot 0
+    gives the batch size and the channels: ``(B, H, W, C)``."""
+    first = stacked_images[0]
+    return BatchedStitch(plan, len(first), first.shape[-1], engine, device,
                          mesh)(stacked_images)

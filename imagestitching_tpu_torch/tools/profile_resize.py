@@ -1,5 +1,5 @@
-"""Kernels #1-#3 launched prepared against their one-shot shells, timed in
-a fresh process.
+"""Kernels #1-#3 launched prepared at their main-path sites, timed in a
+fresh process.
 
 Run on a CUDA host, from the root of a checkout:
 
@@ -11,13 +11,12 @@ placements a job, as ``cuda_resize.stitch`` launches them), #2 at config 5
 (64 jobs, eight resampled placements a flush, as ``stitch_batch`` launches
 them) and #3 at config 4 with EXIF orientations on the banded rung (five
 placements in 256-row chunks, as ``WindowLauncher`` launches them).
-Parity comes first: per site, the prepared launches, the one-shot shells
-(``resize_place``, ``resize_place_batch``, ``resize_place_window``) and the
-plain version must agree bit for bit, or it exits 1.  Then per site and per
-form it prints the CUDA-event time of all the site's launches (the median
-of ``--rounds`` rounds of ``--reps``), the profiler's device busy time and
-the host microseconds a launch takes, beside the bound (the taps'
-footprint read once and the regions written, at 3.35 TB/s).  A fresh
+Parity comes first: per site, the prepared launches and the plain version
+must agree bit for bit, or it exits 1.  Then per site it prints the
+CUDA-event time of all the site's launches (the median of ``--rounds``
+rounds of ``--reps``), the profiler's device busy time and the host
+microseconds a launch takes, beside the bound (the taps' footprint read
+once and the regions written, at 3.35 TB/s).  A fresh
 process, because late in a long one the profiler drops GPU records.  The
 last line is a JSON record of the run.  Without CUDA it raises: there is no
 CPU mode.
@@ -56,11 +55,10 @@ BAND_ROWS = 256
 
 
 class Site(NamedTuple):
-    """One site: its launches in the two forms, and how to check them."""
+    """One site: its prepared launches, and how to check them."""
 
     name: str
     prepared: List[Callable[[], None]]
-    oneshot: List[Callable[[], None]]
     parity: Callable[[], tuple]      # (max |diff|, differing pixels)
     nbytes: int
 
@@ -113,8 +111,7 @@ def site_config3(dev, gen) -> Site:
                                max_images=None))
     canvas = torch.zeros((plan.canvas_h, plan.canvas_w, 3),
                          dtype=torch.uint8, device=dev)
-    other = torch.zeros_like(canvas)
-    prepared, oneshot, checks, nbytes = [], [], [], 0
+    prepared, checks, nbytes = [], [], 0
     for p in _resampled(plan):
         src = torch.randint(0, 256, (p.raw_h, p.raw_w, 3), generator=gen,
                             dtype=torch.uint8, device=dev)
@@ -124,19 +121,14 @@ def site_config3(dev, gen) -> Site:
         launch = cuda_resize.PlaceLaunch(src, p.orientation, *taps, canvas,
                                          r0, c0)
         prepared.append(lambda f=launch, s=src: f(s, canvas))
-        oneshot.append(lambda s=src, p=p, t=taps, r0=r0, c0=c0:
-                       cuda_resize.resize_place(s, p.orientation, *t, other,
-                                                r0, c0))
         checks.append((src, p.orientation, taps, (r0, r1, c0, c1)))
         nbytes += _bytes(p, plan.filter, taps)
 
     def parity():
-        out = [_diff(canvas, other)]
-        for src, o, taps, (r0, r1, c0, c1) in checks:
-            out.append(_diff(canvas[r0:r1, c0:c1],
-                             cuda_resize.resize_place_ref(src, o, *taps)))
-        return _worst(out)
-    return Site("#1 config 3", prepared, oneshot, parity, nbytes)
+        return _worst([_diff(canvas[r0:r1, c0:c1],
+                             cuda_resize.resize_place_ref(src, o, *taps))
+                       for src, o, taps, (r0, r1, c0, c1) in checks])
+    return Site("#1 config 3", prepared, parity, nbytes)
 
 
 def site_config5(dev, gen, batch=BATCH5) -> Site:
@@ -146,8 +138,7 @@ def site_config5(dev, gen, batch=BATCH5) -> Site:
                  StitchOptions(mode="min", gap=4, max_images=None))
     canvas = torch.zeros((batch, plan.canvas_h, plan.canvas_w, 3),
                          dtype=torch.uint8, device=dev)
-    other = torch.zeros_like(canvas)
-    prepared, oneshot, checks, nbytes = [], [], [], 0
+    prepared, checks, nbytes = [], [], 0
     for p in _resampled(plan):
         src = torch.randint(0, 256, (batch, p.raw_h, p.raw_w, 3),
                             generator=gen, dtype=torch.uint8, device=dev)
@@ -157,14 +148,11 @@ def site_config5(dev, gen, batch=BATCH5) -> Site:
         launch = cuda_resize.PlaceLaunch(src, p.orientation, *taps, canvas,
                                          r0, c0)
         prepared.append(lambda f=launch, s=src: f(s, canvas))
-        oneshot.append(lambda s=src, p=p, t=taps, r0=r0, c0=c0:
-                       cuda_resize.resize_place_batch(s, p.orientation, *t,
-                                                      other, r0, c0))
         checks.append((src, p.orientation, taps, (r0, r1, c0, c1)))
         nbytes += _bytes(p, plan.filter, taps, batch)
 
     def parity():
-        out = [_diff(canvas, other)]
+        out = []
         for src, o, taps, (r0, r1, c0, c1) in checks:
             # a few jobs at a time: the float32 plain version of 64 jobs
             # takes gigabytes
@@ -173,8 +161,7 @@ def site_config5(dev, gen, batch=BATCH5) -> Site:
                                  cuda_resize.resize_place_batch_ref(
                                      src[b:b + 8], o, *taps)))
         return _worst(out)
-    return Site(f"#2 config 5 (B={batch})", prepared, oneshot, parity,
-                nbytes)
+    return Site(f"#2 config 5 (B={batch})", prepared, parity, nbytes)
 
 
 def site_config4_banded(dev, gen, band_rows=BAND_ROWS) -> Site:
@@ -183,7 +170,7 @@ def site_config4_banded(dev, gen, band_rows=BAND_ROWS) -> Site:
     of the source oriented on the card)."""
     plan = solve([ImageSpec(w, h, o) for w, h, o in CONFIG4],
                  StitchOptions(mode="min", gap=4, max_images=None))
-    prepared, oneshot, chunks, nbytes = [], [], [], 0
+    prepared, chunks, nbytes = [], [], 0
     for p in _resampled(plan):
         raw = torch.randint(0, 256, (p.raw_h, p.raw_w, 3), generator=gen,
                             dtype=torch.uint8, device=dev)
@@ -194,7 +181,6 @@ def site_config4_banded(dev, gen, band_rows=BAND_ROWS) -> Site:
                 for x in (wp.ri0, wp.rw, wp.ci0, wp.cw)]
         region = torch.zeros((wp.chunk, wp.n_cols, 3), dtype=torch.uint8,
                              device=dev)
-        other = torch.zeros_like(region)
         launch = cuda_resize.WindowLauncher(*taps, region,
                                             (wp.crop_rows, wp.disp_w, 3))
         for g in range(wp.n_chunks):
@@ -202,26 +188,21 @@ def site_config4_banded(dev, gen, band_rows=BAND_ROWS) -> Site:
             crop = oriented[s_lo:s_lo + wp.crop_rows]
             prepared.append(lambda f=launch, c=crop, a=a, s=s_lo, v=valid:
                             f(c, a, s, v))
-            oneshot.append(lambda c=crop, t=taps, o=other, a=a, s=s_lo,
-                           v=valid: cuda_resize.resize_place_window(
-                               c, *t, o, a, s, v))
-            chunks.append((prepared[-1], oneshot[-1], crop, taps, region,
-                           other, (a, s_lo, valid)))
+            chunks.append((prepared[-1], crop, taps, region,
+                           (a, s_lo, valid)))
             i0, w = wp.chunk_taps(g)
             nbytes += footprint_bytes(i0, w, wp.crop_rows, wp.ci0, wp.cw,
                                       wp.disp_w, 3) + valid * wp.n_cols * 3
 
     def parity():
         out = []
-        for run, once, crop, taps, region, other, (a, s_lo, n) in chunks:
+        for run, crop, taps, region, (a, s_lo, n) in chunks:
             run()
-            once()
-            out.append(_diff(region[:n], other[:n]))
             out.append(_diff(region[:n], cuda_resize.resize_place_window_ref(
                 crop, *taps, a, s_lo, n)))
         return _worst(out)
     return Site(f"#3 config 4-EXIF banded ({band_rows}-row chunks)",
-                prepared, oneshot, parity, nbytes)
+                prepared, parity, nbytes)
 
 
 def _all(fns: Sequence[Callable[[], None]]) -> Callable[[], None]:
@@ -233,7 +214,8 @@ def _all(fns: Sequence[Callable[[], None]]) -> Callable[[], None]:
 
 def run(reps: int = 20, rounds: int = 5, seed: int = 0, out=print,
         sites: Optional[Sequence[str]] = None) -> dict:
-    """Parity, then the times of each site's two forms on the current card;
+    """Parity, then the times of each site's prepared launches on the
+    current card;
     the record (``ok`` false when parity failed, and then no times)."""
     dev = resolve_device("cuda")     # no card: raises, never the CPU
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -244,12 +226,12 @@ def run(reps: int = 20, rounds: int = 5, seed: int = 0, out=print,
     built = {}
     for key in sites or makers:
         site = built[key] = makers[key](dev, gen)
-        for f in site.prepared + site.oneshot:
+        for f in site.prepared:
             f()
         torch.cuda.synchronize()
         record["parity"][key] = site.parity()
         out(f"{site.name}: {len(site.prepared)} launches a job, prepared "
-            f"vs one-shot vs plain max |diff| {record['parity'][key][0]} "
+            f"vs plain max |diff| {record['parity'][key][0]} "
             f"({record['parity'][key][1]} px)")
     record["ok"] = all(v == (0, 0) for v in record["parity"].values())
     if not record["ok"]:
@@ -258,19 +240,16 @@ def run(reps: int = 20, rounds: int = 5, seed: int = 0, out=print,
         bound = site.nbytes / HBM_BYTES_PER_S * 1e3
         n = len(site.prepared)
         times = {"launches": n, "bytes": site.nbytes, "bound_ms": bound}
-        for form in ("prepared", "oneshot"):
-            job = _all(getattr(site, form))
-            # about 200 launches in flight at most, well inside the queue
-            times[form] = {"ms": events_ms(job, reps, rounds),
-                           "busy_ms": busy_ms(job, bound, reps),
-                           "host_us": host_us(job, max(2, 200 // n)) / n}
+        job = _all(site.prepared)
+        # about 200 launches in flight at most, well inside the queue
+        times["prepared"] = pr = {
+            "ms": events_ms(job, reps, rounds),
+            "busy_ms": busy_ms(job, bound, reps),
+            "host_us": host_us(job, max(2, 200 // n)) / n}
         record["sites"][key] = times
-        pr, os_ = times["prepared"], times["oneshot"]
-        out(f"{site.name}: ms a job by CUDA events prepared {pr['ms']:.4f} "
-            f"one-shot {os_['ms']:.4f}; busy prepared "
-            f"{_fmt(pr['busy_ms'])} one-shot {_fmt(os_['busy_ms'])}; host "
-            f"us a launch prepared {pr['host_us']:.2f} one-shot "
-            f"{os_['host_us']:.2f}; bound {bound:.4f} ({site.nbytes} bytes "
+        out(f"{site.name}: ms a job by CUDA events prepared {pr['ms']:.4f}; "
+            f"busy {_fmt(pr['busy_ms'])}; host us a launch "
+            f"{pr['host_us']:.2f}; bound {bound:.4f} ({site.nbytes} bytes "
             f"at 3.35 TB/s)")
     return record
 
@@ -281,9 +260,8 @@ def _fmt(v) -> str:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
-        description="Kernels #1-#3 at their main-path sites: prepared "
-                    "launches against the one-shot shells (parity, then "
-                    "times)")
+        description="Kernels #1-#3 at their main-path sites, launched "
+                    "prepared (parity, then times)")
     ap.add_argument("--reps", type=int, default=20,
                     help="jobs per timed round (default 20)")
     ap.add_argument("--rounds", type=int, default=5,

@@ -111,9 +111,10 @@ def test_batched_orientations_match_oracle(o):
                                   "empty-span"])
 def test_batch_of_one_equals_single_job_path(name):
     plan, stacks = _case(name, b=1)
-    got = cuda_resize.stitch_batch(plan, stacks, "cpu")
+    got = batch.BatchedStitch(plan, 1, stacks[0].shape[3],
+                              device="cpu")(stacks)
     single = cuda_resize.stitch(plan, [s[0] for s in stacks], "cpu")
-    assert torch.equal(got[0], single)
+    np.testing.assert_array_equal(got[0], single.numpy())
 
 
 @pytest.mark.parametrize("name", ["mixed", "horizontal-frac", "gray"])
@@ -139,7 +140,7 @@ def test_batched_validates_shapes():
         b([np.zeros((2, 16, 16, 3), np.float32)])
     with pytest.raises(ValueError, match="slot count"):
         b([np.zeros((2, 16, 16, 3), np.uint8)] * 2)
-    with pytest.raises(ValueError, match="B=2"):
+    with pytest.raises(ValueError, match="H, W, C"):
         b([np.zeros((2, 16, 16), np.uint8)])                  # not BHWC
 
 
@@ -172,7 +173,7 @@ def _per_job_slots(bad):
     a, b = np.zeros((16, 16, 3), np.uint8), np.zeros((8, 16, 3), np.uint8)
     slots = {
         "too-many-jobs": [[a, a, a], [b, b, b]],
-        "mixed-forms": [[a, a], np.stack([b, b])],
+        "stack-too-many-jobs": [np.stack([a, a, a]), np.stack([b, b, b])],
         "uneven-jobs": [[a, a], [b]],
         "wrong-dims": [[a, a], [a, a]],
         "not-hwc": [[a, a[..., 0]], [b, b]],
@@ -183,7 +184,7 @@ def _per_job_slots(bad):
 
 
 @pytest.mark.parametrize("bad,match", [
-    ("too-many-jobs", "B=2"), ("mixed-forms", "mix"),
+    ("too-many-jobs", "B=2"), ("stack-too-many-jobs", "B=2"),
     ("uneven-jobs", "jobs"), ("wrong-dims", "plan says"),
     ("not-hwc", "H, W, C"), ("float", "uint8"), ("channels", "channels"),
 ])
@@ -213,6 +214,21 @@ def test_cuda_device_without_cuda_raises():
     plan = solve([ImageSpec(16, 16)], StitchOptions(supersample=False))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         batch.BatchedStitch(plan, 2, device="cuda")
+
+
+@pytest.mark.parametrize("mesh", [None, 4], ids=["one-device", "jobs-mesh"])
+def test_short_stack_pads_with_zero_jobs(mesh):
+    """A ``(b, H, W, C)`` stack of fewer than B rows is accepted: its rows
+    are the jobs, and the rows past them zero jobs, as in the same stack
+    padded with zeros (on a jobs mesh, the last shards hold no job)."""
+    plan, stacks = _case("mixed", b=8)
+    kw = dict(device="cpu") if mesh is None else dict(
+        mesh=make_mesh(devices=["cpu"] * mesh))
+    bs = batch.BatchedStitch(plan, 8, **kw)
+    got = bs([s[:3] for s in stacks])
+    for s in stacks:
+        s[3:] = 0
+    np.testing.assert_array_equal(got, bs(stacks))
 
 
 def test_warm_runs_a_zero_batch():

@@ -252,8 +252,7 @@ def test_port_runs_without_the_jax_package(script, argv):
 def _sources():
     files = sorted(os.path.join(d, f) for d, _, fs in os.walk(_PORT)
                    for f in fs if f.endswith(".py"))
-    return files + [os.path.join(_ROOT, "chip_smoke.py"),
-                    os.path.join(_ROOT, "chip_ab.py")]
+    return files + [os.path.join(_ROOT, "chip_smoke.py")]
 
 
 def test_no_port_source_imports_jax():
@@ -295,12 +294,16 @@ def test_no_port_module_imports_the_jax_package(path):
 def test_kernel_source_is_in_the_package():
     with open(os.path.join(_PORT, "csrc", "resize_place.cu")) as f:
         src = f.read()
-    assert 'extern "C"' in src and "int resize_place_launch(" in src
-    assert "int resize_place_batch_launch(" in src
-    assert "int resize_place_window_launch(" in src
+    assert 'extern "C"' in src
     for entry in ("resize_place_args_size", "resize_place_prepare",
                   "resize_place_run", "resize_place_window_run"):
         assert f"int {entry}(" in src, entry
+    # one launch form: the one-shot shells and their bindings are gone
+    with open(os.path.join(_PORT, "ops", "_build.py")) as f:
+        build = f.read()
+    for form in ("", "_batch", "_window"):
+        shell = f"resize_place{form}_launch"
+        assert shell not in src and shell not in build, shell
     with open(os.path.join(_PORT, "csrc", "resize_place_staged.cu")) as f:
         src = f.read()
     assert 'extern "C"' in src and "int resize_place_staged_run(" in src
@@ -340,17 +343,6 @@ def test_chip_smoke_fails_without_a_card(tmp_path, where):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
-
-
-def test_chip_ab_fails_without_a_card():
-    """chip_ab.py's measuring run exits non-zero without CUDA (this host),
-    and without `--one` it stops at the first run that fails."""
-    script = os.path.join(_ROOT, "chip_ab.py")
-    for argv in (["--one", _ROOT], [_ROOT]):
-        proc = subprocess.run([sys.executable, script, *argv], cwd=_ROOT,
-                              capture_output=True, text=True, timeout=300)
-        assert proc.returncode != 0
-        assert "AB " not in proc.stdout
 
 
 def _lazy_names(path):

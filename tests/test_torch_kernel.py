@@ -19,7 +19,9 @@ as uint8 or bf16: both equal its plain version at the persistent default
 grid, at grids where each CTA walks 8, about 115 or all of the tiles (the
 ring wraps), with one channel and with an odd width's padded pitch, and
 equal #1 on config 5's slot 0; its prepared call equals the one-shot
-wrapper, and a wrong pitch or a refused launch raises.
+wrapper, and a wrong pitch or a refused launch raises.  Kernels #1-#3
+launch prepared, reused or made and called once by the wrappers, with
+equal bits.
 
 The cases reach what the tiled body does differently: tiles cut by the
 region's edge at odd canvas columns, a 12x bilinear downscale of a
@@ -777,9 +779,10 @@ def test_staged_refused_launch_raises(card):
 @pytest.mark.parametrize("name", sorted(_CASES))
 def test_prepared_kernel_equals_one_shot_and_plain(card, name):
     """#1 and #2 prepared (``PlaceLaunch``: checked, packed and tiled once,
-    one ``ctypes`` call a launch) against the one-shot shells and the plain
-    version, bit for bit: one job, then B = 3 jobs of other data through
-    one prepared launch, each launch counted once and none as one-shot."""
+    one ``ctypes`` call a launch, the launch reused) against the wrappers
+    (a launch made and called once) and the plain version, bit for bit:
+    one job, then B = 3 jobs of other data through one prepared launch,
+    each launch counted once."""
     plan, imgs = _job(name)
     c = _CASES[name][3]
     rng = np.random.default_rng(sum(map(ord, name)) + 2)
@@ -796,9 +799,9 @@ def test_prepared_kernel_equals_one_shot_and_plain(card, name):
         launch = cuda_resize.PlaceLaunch(src, p.orientation, *taps, canvas,
                                          r0, c0)
         assert launch.args.kernel and launch.args.tile_r >= 1
-        counts = (cuda_resize.launches, cuda_resize.oneshot_launches)
+        counts = (cuda_resize.launches, cuda_resize.batch_launches)
         launch(src, canvas)
-        assert (cuda_resize.launches, cuda_resize.oneshot_launches) == (
+        assert (cuda_resize.launches, cuda_resize.batch_launches) == (
             counts[0] + 1, counts[1])
         cuda_resize.resize_place(src, p.orientation, *taps, one, r0, c0)
         assert torch.equal(canvas, one), f"{name} #{p.index}"
@@ -827,8 +830,9 @@ def test_prepared_kernel_equals_one_shot_and_plain(card, name):
 def test_prepared_window_equals_one_shot_and_plain(card, name):
     """#3 prepared (``WindowLauncher``) at chunks of about 16 rows, the last
     one shorter than the region (it launches fewer row tiles of the tile
-    prepared): every chunk equal bit for bit to the one-shot shell's on the
-    same rows and to the plain version, rows past the chunk untouched."""
+    prepared): every chunk equal bit for bit to ``resize_place_window``'s
+    (a launcher made and called once) on the same rows and to the plain
+    version, rows past the chunk untouched."""
     plan, imgs = _job(name)
     checked = 0
     for raw, p in zip(imgs, plan.placements):
@@ -855,12 +859,9 @@ def test_prepared_window_equals_one_shot_and_plain(card, name):
             crop = torch.from_numpy(wp.stage_crop(oriented, g)).to(card)
             region.fill_(7)
             one.fill_(7)
-            counts = (cuda_resize.window_launches,
-                      cuda_resize.oneshot_launches)
+            counts = cuda_resize.window_launches
             launch(crop, a, s_lo, valid)
-            assert (cuda_resize.window_launches,
-                    cuda_resize.oneshot_launches) == (counts[0] + 1,
-                                                      counts[1])
+            assert cuda_resize.window_launches == counts + 1
             cuda_resize.resize_place_window(crop, *taps, one, a, s_lo, valid)
             assert torch.equal(region, one), f"{name} #{p.index} chunk {g}"
             assert torch.equal(region[:valid],
@@ -875,8 +876,9 @@ def test_prepared_window_equals_one_shot_and_plain(card, name):
 
 def test_prepared_preview_equals_one_shot(card):
     """The preview's one large launch (a 27282 x 3000 canvas onto 750 cols,
-    bilinear, K = 2), prepared against the one-shot shell that
-    ``make_preview`` takes and the plain version, bit for bit."""
+    bilinear, K = 2), prepared and reused against ``make_preview``'s
+    (through ``resize_place``, a launch made and called once) and the plain
+    version, bit for bit."""
     from imagestitching_tpu_torch import api
 
     gen = torch.Generator(device=card).manual_seed(21)
@@ -947,20 +949,21 @@ def test_refused_prepare_and_launch_raise(card):
 
 def test_main_path_launches_prepared_on_card(card):
     """The resident, batched and banded paths launch #1, #2 and #3 through
-    their prepared forms: each launch counted, none by a one-shot shell."""
+    their prepared forms: each launch counted."""
+    from imagestitching_tpu_torch.parallel.batch import BatchedStitch
+
     plan, imgs = _job("lanczos3-k97")
     n = sum(geometry.placement_copy_offsets(p, plan.filter) is None
             for p in plan.placements)
     counts = [cuda_resize.launches, cuda_resize.batch_launches,
-              cuda_resize.window_launches, cuda_resize.oneshot_launches]
-    got = cuda_resize.stitch(plan, imgs, card)
-    both = cuda_resize.stitch_batch(plan, [np.stack([a, a]) for a in imgs],
-                                    card)
+              cuda_resize.window_launches]
+    got = cuda_resize.stitch(plan, imgs, card).cpu().numpy()
+    both = BatchedStitch(plan, 2, device=card)(
+        [np.stack([a, a]) for a in imgs])
     banded, _ = pipeline._run_banded(plan, imgs, 3, 64, "auto", card,
                                      lambda *_: None)
-    assert torch.equal(both[0], got) and torch.equal(both[1], got)
-    assert np.array_equal(banded, got.cpu().numpy())
+    assert np.array_equal(both[0], got) and np.array_equal(both[1], got)
+    assert np.array_equal(banded, got)
     assert cuda_resize.launches - counts[0] == n
     assert cuda_resize.batch_launches - counts[1] == n
     assert cuda_resize.window_launches - counts[2] > n
-    assert cuda_resize.oneshot_launches == counts[3]

@@ -137,10 +137,11 @@ def test_mesh_canvases_equal_batched_stitch_on_stacked_inputs(served):
 
 
 def test_every_card_uploads_its_rows_direct(served):
-    """Every card's upload, one holding only padding too, copies rows from
-    the jobs' own arrays; so does the one-device server's."""
+    """Every card uploads its rows, one holding only padding too, in one
+    ``batch.h2d`` span that counts only its card; so does the one-device
+    server."""
     _, _, records, _, one_records = served
     for recs, cards in ((records, 4), (one_records, 1)):
         h2d = [r.counts for r in recs if r.name == "batch.h2d"]
-        assert sorted(c["card"] for c in h2d) == list(range(cards))
-        assert all(c["direct"] == 1 for c in h2d)
+        assert sorted(h2d, key=lambda c: c["card"]) == [
+            {"card": k} for k in range(cards)]

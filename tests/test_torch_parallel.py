@@ -220,7 +220,7 @@ def test_batched_kernel_sharded_over_jobs_mesh():
     plan = plan_for(specs, gap=2)
     stacks = [rand_stack(16, 48, 32), rand_stack(16, 32, 40)]
     bs = batch.BatchedStitch(plan, 16, mesh=m)
-    shards = bs.run_shards(stacks)
+    shards = bs.run_shards([torch.from_numpy(s) for s in stacks])
     assert len(shards) == 8
     assert [t.device for t in shards] == m.axis_devices("jobs")
     assert {tuple(t.shape) for t in shards} == {
@@ -247,6 +247,22 @@ def test_batched_validates_shapes():
         b([rand_stack(3, 16, 16)])     # wrong batch
     with pytest.raises(ValueError):
         b([rand_stack(2, 8, 16)])      # wrong dims
+
+
+@pytest.mark.parametrize("form", ["per-job", "stack"])
+def test_jobs_mesh_refuses_extra_jobs_before_any_shard(form, monkeypatch):
+    """B + 3 jobs for a batch of B over a jobs mesh of 4 are refused
+    before any shard is enqueued: no shard's slice drops the jobs past B
+    silently."""
+    plan = plan_for([ImageSpec(16, 16), ImageSpec(16, 8)])
+    stacks = [rand_stack(11, 16, 16), rand_stack(11, 16, 8)]
+    slots = stacks if form == "stack" else [list(s) for s in stacks]
+    bs = batch.BatchedStitch(plan, 8, engine="torch", mesh=cpu_mesh(n=4))
+    enqueued = []
+    monkeypatch.setattr(bs, "_shard", lambda *a: enqueued.append(a))
+    with pytest.raises(ValueError, match="B=8"):
+        bs(slots)
+    assert enqueued == []
 
 
 def test_batch_on_2d_mesh_jobs_axis():

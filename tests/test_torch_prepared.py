@@ -5,7 +5,7 @@ placement, held in the step cache) and the prepared ``WindowLauncher``
 
 On the CPU each runs its plain version because the tensors lie there; the
 kernels themselves run only on a card (``tests/test_torch_kernel.py``,
-prepared against one-shot against plain, bit for bit).  Here the prepared
+prepared against plain, bit for bit).  Here the prepared
 forms equal their plain versions exactly and the JAX package's Pallas
 kernel (interpret mode, as its own tests run it) within 1 uint8 step: the
 JAX kernel contracts f32 banded matmuls where the port gathers, so a sum
@@ -33,6 +33,7 @@ from imagestitching_tpu_torch.core import geometry
 from imagestitching_tpu_torch.core.layout import ImageSpec, solve
 from imagestitching_tpu_torch.ops import cuda_resize, torch_compose
 from imagestitching_tpu_torch.ops.window import WindowPlan
+from imagestitching_tpu_torch.parallel.batch import BatchedStitch
 
 CPU = torch.device("cpu")
 
@@ -95,7 +96,7 @@ def test_prepared_launch_equals_plain_and_jax(name):
     version's, within 1 of the Pallas kernel, nothing stored outside it, no
     launch counted."""
     plan, jplan, imgs = _job(name)
-    counts = (cuda_resize.launches, cuda_resize.oneshot_launches)
+    counts = (cuda_resize.launches, cuda_resize.batch_launches)
     checked = 0
     for p, jp in _resampled(plan, jplan):
         src = torch.from_numpy(imgs[p.index])
@@ -116,7 +117,7 @@ def test_prepared_launch_equals_plain_and_jax(name):
         assert int(canvas.count_nonzero()) == 0
         checked += 1
     assert checked
-    assert (cuda_resize.launches, cuda_resize.oneshot_launches) == counts
+    assert (cuda_resize.launches, cuda_resize.batch_launches) == counts
 
 
 @pytest.mark.parametrize("name", ["orient6", "lanczos3-gray", "orient3"])
@@ -159,7 +160,7 @@ def test_prepared_window_launcher_equals_plain_and_jax(name, chunk):
     once, per chunk its first tap row and crop start): each chunk's rows
     the plain version's, rows past a short last chunk untouched, the chunks
     together within 1 of the Pallas kernel's region and equal to the
-    one-shot wrapper's chunks."""
+    chunks of ``resize_place_window``, a launcher made and called once."""
     plan, jplan, imgs = _job(name)
     checked = 0
     for p, jp in _resampled(plan, jplan):
@@ -364,23 +365,23 @@ def test_main_path_on_cpu_counts_no_launch():
 
     plan, _, imgs = _job("lanczos3-down")
     counts = (cuda_resize.launches, cuda_resize.batch_launches,
-              cuda_resize.window_launches, cuda_resize.oneshot_launches)
+              cuda_resize.window_launches)
     got = cuda_resize.stitch(plan, imgs, CPU)
     stacks = [np.stack([a, a]) for a in imgs]
-    both = cuda_resize.stitch_batch(plan, stacks, CPU)
+    both = BatchedStitch(plan, 2, device=CPU)(stacks)
     banded, _ = pipeline._run_banded(plan, imgs, 3, 8, "auto", CPU,
                                      lambda *_: None)
-    assert torch.equal(both[0], got) and torch.equal(both[1], got)
+    assert np.array_equal(both[0], got.numpy())
+    assert np.array_equal(both[1], got.numpy())
     assert np.array_equal(banded, got.numpy())
     assert counts == (cuda_resize.launches, cuda_resize.batch_launches,
-                      cuda_resize.window_launches,
-                      cuda_resize.oneshot_launches)
+                      cuda_resize.window_launches)
 
 
 def test_profile_resize_sites_agree_on_cpu(monkeypatch):
     """The fresh-process profiler's three sites (#1 at config 3, #2 at
     config 5, #3 on config 4-EXIF's banded chunks), cut 16x to 32x and run
-    on the CPU: prepared, one-shot and plain agree exactly."""
+    on the CPU: prepared and plain agree exactly."""
     from imagestitching_tpu_torch.tools import profile_resize as pr
 
     monkeypatch.setattr(pr, "CONFIG3", [(w // 16, h // 16, o)
@@ -395,8 +396,8 @@ def test_profile_resize_sites_agree_on_cpu(monkeypatch):
     assert [len(s.prepared) for s in sites[:2]] == [5, 8]
     assert len(sites[2].prepared) > 5
     for site in sites:
-        assert len(site.oneshot) == len(site.prepared) and site.nbytes > 0
-        for f in site.prepared + site.oneshot:
+        assert site.nbytes > 0
+        for f in site.prepared:
             f()
         assert site.parity() == (0, 0), site.name
 

@@ -205,8 +205,9 @@ def test_flush_hands_the_jobs_own_arrays(monkeypatch):
 
 @pytest.mark.parametrize("form", ["server", "stack"])
 def test_upload_counts_direct(form):
-    """A flush's upload copies its jobs' arrays into their rows (``direct``
-    1); a whole stack is uploaded in one copy (0)."""
+    """A flush's upload copies its jobs' arrays into their rows, and so
+    does a whole stack's, row by row: one ``batch.h2d`` span either way,
+    counting only its card."""
     jobs = [[rand_img(20, 12)] for _ in range(2)]
     if form == "server":
         _, records = _one_flush(jobs, StitchOptions())
@@ -218,7 +219,7 @@ def test_upload_counts_direct(form):
         records, _ = spans.snapshot(t0, time.perf_counter_ns())
         records = [r for r in records if r.thread == threading.get_ident()]
     (h2d,) = [r for r in records if r.name == "batch.h2d"]
-    assert h2d.counts == {"card": 0, "direct": int(form == "server")}
+    assert h2d.counts == {"card": 0}
 
 
 def test_close_flushes():

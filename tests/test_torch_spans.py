@@ -179,13 +179,11 @@ def test_server_flush_and_jobs_record_their_spans():
         (stack,) = [r for r in kids if r.name == "serve.stack"]
         assert stack.start_ns == f.start_ns
     # a one-device flush counts its jobs, no padding and one card, and its
-    # batch spans count card 0, its upload the jobs' arrays copied direct;
-    # no other server span counts anything
+    # batch spans count card 0; no other server span counts anything
     assert sum(f.counts["jobs"] for f in flushes.values()) == 6
     assert all(f.counts == {"jobs": f.counts["jobs"], "pad_jobs": 0,
                             "cards": 1} for f in flushes.values())
-    assert all(r.counts == ({"card": 0, "direct": 1}
-                            if r.name == "batch.h2d" else {"card": 0})
+    assert all(r.counts == {"card": 0}
                for r in records if r.name.startswith("batch."))
     assert all(r.counts is None for r in records
                if r.name not in ("serve.flush", *_BATCH))
