@@ -61,6 +61,8 @@ launches = 0
 batch_launches = 0
 #: Launches of kernel #3 (a row chunk of a placement) in this process.
 window_launches = 0
+# the cards of a jobs-mesh flush launch #2 from their own threads
+_count_lock = threading.Lock()
 
 #: The batched kernel's z-grid bound (``gridDim.z``).
 MAX_BATCH = 65535
@@ -317,10 +319,11 @@ class PlaceLaunch:
                                 self._stream(self._index))
         if err != 0:
             raise _launch_error(self._lib, "kernel launch", err)
-        if self.batched:
-            batch_launches += 1
-        else:
-            launches += 1
+        with _count_lock:
+            if self.batched:
+                batch_launches += 1
+            else:
+                launches += 1
 
 
 class PlacementLauncher:

@@ -16,8 +16,17 @@ With a ``parallel.mesh.DeviceMesh`` (the twin of the shard_map branch,
 ``[j*b, (j+1)*b)`` (``b = batch / jobs``) and runs them on its first device,
 one launch of kernel #2 per resampled placement.  Jobs are independent, so
 there is no collective.  A 2D mesh replicates over ``space`` in JAX; the
-port computes each jobs shard once.  Every shard is enqueued before any is
-read back into one host array.
+port computes each jobs shard once.  A call is one unit of work per
+distinct device among the shards: it enqueues that device's shards, waits
+for the device, then reads each shard back into its own rows of the call's
+one host array.  Where the shards lie on one device (no mesh, or a mesh
+that repeats one device) the unit runs on the calling thread.  Where they
+span several cards, each card's unit runs at once with the others on that
+card's worker thread (one long-lived thread per card, shared by every
+``BatchedStitch`` of the process), and the call returns when every card is
+done.  The workers first-touch the pages of one fresh host array, each its
+own rows: a host whose memory manager serialises page faults serialises
+those readbacks.
 
 PyTorch runs eagerly, so there is nothing to compile per batch size: the
 JAX class's ``jax.jit``, ``ensure_compile_cache`` and
@@ -31,16 +40,21 @@ shards; each job is copied straight into its row of the shard's stack on
 the device, and rows past the jobs are zero-filled there.  The server hands
 its jobs' arrays, so a flush builds no host stack.
 
-A call is timed as spans (:mod:`..runtime.spans`): per shard ``batch.h2d``
-(the upload of its stacks) and ``batch.draw`` (the enqueue of its canvas
-and placements), then per device ``batch.sync`` (the wait for the kernels)
-and per shard ``batch.readback`` (the copy into the host array).  Each
-carries the count ``card``: the shard's index on the ``jobs`` axis (0
-without a mesh); a device's ``batch.sync`` carries its first shard's.
+A call is timed as spans (:mod:`..runtime.spans`), on the thread that runs
+each unit and as children of the caller's innermost span: per shard
+``batch.h2d`` (the upload of its stacks) and ``batch.draw`` (the enqueue of
+its canvas and placements), then per device ``batch.sync`` (the wait for
+the kernels) and per shard ``batch.readback`` (the copy into the host
+array).  Each carries the count ``card``: the shard's index on the ``jobs``
+axis (0 without a mesh); a device's ``batch.sync`` carries its first
+shard's.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -53,6 +67,21 @@ from ..runtime.pipeline import resolve_device
 from .mesh import DeviceMesh, job_sharding
 
 ENGINES = ("auto", "cuda", "torch")
+
+#: Each card's worker: one thread, made on the card's first call that spans
+#: several cards and kept for the process, whichever ``BatchedStitch`` calls.
+_workers: Dict[torch.device, ThreadPoolExecutor] = {}
+_workers_lock = threading.Lock()
+
+
+def _worker(device: torch.device) -> ThreadPoolExecutor:
+    """``device``'s worker thread, named after the card."""
+    with _workers_lock:
+        pool = _workers.get(device)
+        if pool is None:
+            pool = _workers[device] = ThreadPoolExecutor(
+                1, thread_name_prefix=f"batch.card {device}")
+        return pool
 
 
 class BatchedStitch:
@@ -84,18 +113,18 @@ class BatchedStitch:
         self.batch_size = batch_size
         self.channels = channels
         self.engine = engine
-        # each distinct device, in shard order, with its first shard's index
-        self._first_card: Dict[torch.device, int] = {}
+        # each distinct device, in shard order, with its shards' indices
+        self._cards_of: Dict[torch.device, List[int]] = {}
         for k, (d, _) in enumerate(self.shards):
-            self._first_card.setdefault(d, k)
+            self._cards_of.setdefault(d, []).append(k)
         self._steps = {d: cuda_resize.plan_steps(plan, d)
-                       for d in self._first_card}
+                       for d in self._cards_of}
 
     @property
     def cards(self) -> int:
         """The distinct devices among the shards: the jobs axis on distinct
         cards, 1 on a mesh that repeats one device."""
-        return len(self._first_card)
+        return len(self._cards_of)
 
     def _shard(self, card: int,
                slots: Sequence[Sequence[torch.Tensor]]) -> torch.Tensor:
@@ -105,23 +134,77 @@ class BatchedStitch:
                                         plain=self.engine == "torch",
                                         steps=self._steps[device], card=card)
 
-    def run_shards(self, slots: Sequence[Sequence[torch.Tensor]]
+    def run_shards(self, slots: Sequence[Sequence[torch.Tensor]],
+                   device: Optional[torch.device] = None
                    ) -> List[torch.Tensor]:
-        """Enqueue every jobs shard: the ``(b, canvas_h, canvas_w, C)``
-        canvas tensor of each, on its own device, in shard order.  Each
-        slot is its jobs' ``(H, W, C)`` tensors as :meth:`__call__` checks
-        them; each shard takes the jobs in its rows, which may be fewer
-        than its rows or none.  The caller synchronises."""
-        return [self._shard(k, [s[lo:hi] for s in slots])
-                for k, (_, (lo, hi)) in enumerate(self.shards)]
+        """Enqueue the jobs shards on ``device`` (every shard without it),
+        on the calling thread: the ``(b, canvas_h, canvas_w, C)`` canvas
+        tensor of each, on its own device, in shard order.  Each slot is
+        its jobs' ``(H, W, C)`` tensors as :meth:`__call__` checks them;
+        each shard takes the jobs in its rows, which may be fewer than its
+        rows or none.  The caller synchronises."""
+        cards = range(len(self.shards)) if device is None \
+            else self._cards_of[device]
+        outs = []
+        for k in cards:
+            lo, hi = self.shards[k][1]
+            outs.append(self._shard(k, [s[lo:hi] for s in slots]))
+        return outs
+
+    def _serve_card(self, device: torch.device,
+                    slots: Sequence[Sequence[torch.Tensor]],
+                    host: Optional[np.ndarray], ctx: spans.Context) -> None:
+        """One device's unit of a call, its spans children of ``ctx``:
+        enqueue its shards, wait for the device (``batch.sync``), then read
+        each shard back into its rows of ``host`` (``batch.readback``).
+        Without ``host`` (a warm-up) one element of each shard is fetched
+        instead."""
+        cards = self._cards_of[device]
+        on_card = torch.cuda.device(device) if device.type == "cuda" \
+            else contextlib.nullcontext()
+        with spans.within(ctx), on_card:
+            outs = self.run_shards(slots, device)
+            if host is None:
+                for out in outs:
+                    out[:1, :1, :1, :1].cpu()
+                return
+            with spans.span("batch.sync") as s:
+                s.counts = {"card": cards[0]}
+                if device.type == "cuda":
+                    # a kernel fault surfaces here, inside the caller's call
+                    torch.cuda.synchronize(device)
+            for card, out in zip(cards, outs):
+                lo, hi = self.shards[card][1]
+                with spans.span("batch.readback") as s:
+                    s.counts = {"card": card}
+                    torch.from_numpy(host[lo:hi]).copy_(out)
+
+    def _serve(self, slots: Sequence[Sequence[torch.Tensor]],
+               host: Optional[np.ndarray]) -> None:
+        """Every device's unit: on the calling thread where the shards lie
+        on one device, else each on its card's worker, all at once.  Every
+        unit has stopped before this returns or raises; the first card's
+        error is raised here."""
+        ctx = spans.current()
+        if self.cards == 1:
+            self._serve_card(self.device, slots, host, ctx)
+            return
+        futs = []
+        try:
+            for d in self._cards_of:
+                futs.append(_worker(d).submit(self._serve_card, d, slots,
+                                              host, ctx))
+        finally:
+            wait(futs)
+        for f in futs:
+            f.result()
 
     def warm(self) -> None:
         """Run each shard once with no job, so that every row is a zero job
         filled on its device, then fetch one element of each: no
-        host-to-device staging and no full-canvas readback."""
-        outs = self.run_shards([[] for _ in self.plan.placements])
-        for out in outs:
-            out[:1, :1, :1, :1].cpu()
+        host-to-device staging and no full-canvas readback.  It takes the
+        path of a call, so a mesh of several cards starts their workers."""
+        self._serve([[] for _ in self.plan.placements], None)
 
     def __call__(self, stacked_images: Sequence) -> np.ndarray:
         """stacked_images[i], image slot i: the sequence of its b <= B
@@ -130,7 +213,9 @@ class BatchedStitch:
         (rows b to B are zero jobs); returns the (B, canvas_h, canvas_w, C)
         uint8 canvases.  Every check happens here, before the batch is
         split into shards (the JAX ``BatchedStitch.__call__``'s checks and
-        messages)."""
+        messages).  The host array is made here; each device's unit fills
+        its shards' rows, the cards of a mesh at once on their workers,
+        and every unit has stopped before this returns or raises."""
         if len(stacked_images) != len(self.plan.placements):
             raise ValueError("image-slot count does not match plan")
         counts = sorted({len(s) for s in stacked_images})
@@ -159,18 +244,9 @@ class BatchedStitch:
                                      f"batch has {self.channels} (1 or 3, "
                                      f"equal)")
             slots.append(jobs)
-        outs = self.run_shards(slots)
-        for d, card in self._first_card.items():
-            with spans.span("batch.sync") as s:
-                s.counts = {"card": card}
-                if d.type == "cuda":
-                    # a kernel fault surfaces here, inside the caller's flush
-                    torch.cuda.synchronize(d)
-        host = np.empty((self.batch_size, *outs[0].shape[1:]), np.uint8)
-        for card, ((_, (lo, hi)), out) in enumerate(zip(self.shards, outs)):
-            with spans.span("batch.readback") as s:
-                s.counts = {"card": card}
-                torch.from_numpy(host[lo:hi]).copy_(out)
+        host = np.empty((self.batch_size, self.plan.canvas_h,
+                         self.plan.canvas_w, self.channels), np.uint8)
+        self._serve(slots, host)
         return host
 
 

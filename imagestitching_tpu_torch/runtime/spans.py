@@ -29,11 +29,12 @@ Names and what reads them are listed in PERF.md (section 3).
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import threading
 from threading import get_ident
 from time import perf_counter_ns
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
@@ -144,6 +145,19 @@ def current() -> Context:
     """The calling thread's job and innermost open span (0, 0 outside any
     span), to hand to work on another thread."""
     return Context(*_current.ctx)
+
+
+@contextlib.contextmanager
+def within(ctx: Context) -> Iterator[None]:
+    """Open the calling thread's spans as children of ``ctx``, a
+    :func:`current` read on the thread that handed this one its work, until
+    the block ends.  On the thread that read ``ctx`` it changes nothing."""
+    outer = _current.ctx
+    _current.ctx = (ctx.job, ctx.span)
+    try:
+        yield
+    finally:
+        _current.ctx = outer
 
 
 def _profiling() -> bool:

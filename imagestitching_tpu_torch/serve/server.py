@@ -25,7 +25,12 @@ axis (``BatchedStitch(mesh=)``): the mesh is ``config.mesh`` when the caller
 set one, else ``parallel.mesh.make_mesh()`` over every card.  The memory
 cap multiplies by the jobs axis and rounds down to a multiple of it, and a
 flush pads with zero jobs up to the next multiple and drops their canvases
-(twins of ``_effective_cap``, ``_padded_batch`` and ``_batch_cap``).
+(twins of ``_effective_cap``, ``_padded_batch`` and ``_batch_cap``).  On a
+mesh of distinct cards a flush serves them at once: each card uploads,
+draws, waits for and reads back its shard on its own worker thread, and the
+flush goes on (to its jobs' results, or to the split-retry of a failed
+batch) only once every card has stopped.  On one card, or a mesh that
+repeats one device, the flush runs on the server's thread.
 
 A flush builds no host stack: it hands ``BatchedStitch`` each slot's jobs'
 own arrays, which the upload copies straight into their rows of the
@@ -35,8 +40,9 @@ Spans (:mod:`..runtime.spans`): each job is a root ``serve.submit`` on the
 client's thread with a job id of its own, then a ``serve.queue`` (from its
 enqueue to its flush's start) and a ``serve.resolve`` under its flush; each
 flush is a ``serve.flush`` holding ``serve.stack`` (gathering each slot's
-arrays from the jobs) and ``BatchedStitch``'s ``batch.*`` spans.  A flush
-that ran counts ``jobs`` (its real jobs), ``pad_jobs`` (the zero jobs it
+arrays from the jobs) and ``BatchedStitch``'s ``batch.*`` spans (its
+direct children, on whichever thread each card ran).  A flush that ran
+counts ``jobs`` (its real jobs), ``pad_jobs`` (the zero jobs it
 padded with) and ``cards`` (the distinct devices its shards ran on).  The
 timings of :meth:`StitchServer.stats` are sums of the same clock readings.
 """
