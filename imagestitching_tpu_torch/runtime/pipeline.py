@@ -37,9 +37,10 @@ resident and streamed rungs; an OOM demotes it to the banded rung.
 Each phase is a span (:mod:`.spans`): ``plan``; per staged source
 ``stage.slot_wait``, ``stage.pin_copy``, ``stage.enqueue``, ``draw`` and
 ``stage.fence``, back to back; ``drain``; ``readback`` with the pages it
-made resident and the blocks by which torch's pinned-host pool grew; and
-``streamed`` / ``banded`` at those rungs' entries.  ``StitchMetrics``'
-overlapped timings are sums of the same clock readings.
+made resident and the blocks by which torch's pinned-host pool grew;
+``streamed`` / ``banded`` at those rungs' entries; and under ``banded`` on
+the kernel path the ``band.*`` phases of :func:`_run_banded_kernel`.
+``StitchMetrics``' overlapped timings are sums of the same clock readings.
 """
 
 from __future__ import annotations
@@ -225,7 +226,8 @@ def _host_canvas(plan: LayoutPlan, channels: int) -> np.ndarray:
 
 def _run_banded_kernel(plan: LayoutPlan, oriented: Sequence[np.ndarray],
                        channels: int, band_rows: int, device: torch.device,
-                       progress: ProgressFn) -> Result:
+                       progress: ProgressFn,
+                       banded: Optional[spans.span] = None) -> Result:
     """The banded strategy on kernel #3: the canvas lives on the host.
 
     Identity placements are host blits.  Every other placement runs in
@@ -235,39 +237,65 @@ def _run_banded_kernel(plan: LayoutPlan, oriented: Sequence[np.ndarray],
     placement's taps are uploaded once; a chunk passes its first tap row
     and its crop's start (``cuda_resize.WindowLauncher``).  The device
     holds one window, one region and the taps.  Returns ``(canvas, bytes
-    uploaded)``."""
+    uploaded)``.
+
+    Each phase is a span under the caller's: ``band.fill`` (the host
+    canvas and its background); per identity placement ``band.blit``; per
+    resampled placement ``band.prepare`` (its ``WindowPlan``, the taps'
+    upload and the launcher), then per chunk ``band.crop`` (the contiguous
+    host copy of its source window), ``band.h2d``, ``band.draw`` and
+    ``band.readback`` (the wait for the kernel, the copy to the host and
+    into the canvas), back to back from the prepare's end; the crop and the
+    upload count their ``bytes``.  ``banded``, the rung's open span, gets
+    the counts ``chunks`` (the launches of #3) and ``band_rows``."""
     work = []
     for img, p in zip(oriented, plan.placements):
         if p.row_span[1] <= p.row_span[0] or p.col_span[1] <= p.col_span[0]:
             continue
-        off = geometry.placement_copy_offsets(p, plan.filter)
-        work.append((img, p, off if off is not None
-                     else WindowPlan(p, plan.filter, band_rows)))
-    out = _host_canvas(plan, channels)
-    total = sum(1 if isinstance(w, tuple) else w.n_chunks for _, _, w in work)
+        work.append((img, p, geometry.placement_copy_offsets(p, plan.filter)))
+    # a resampled placement's chunks, as WindowPlan cuts its rows
+    chunks = [0 if off is not None
+              else len(range(0, p.row_span[1] - p.row_span[0], band_rows))
+              for _, p, off in work]
+    if banded is not None:
+        banded.counts = {"chunks": sum(chunks), "band_rows": band_rows}
+    with spans.span("band.fill"):
+        out = _host_canvas(plan, channels)
+    total = sum(max(1, n) for n in chunks)
     done = uploaded = 0
-    for img, p, w in work:
+    for img, p, off in work:
         r0, r1 = p.row_span
         c0, c1 = p.col_span
-        if isinstance(w, tuple):
-            sr, sc = w
-            out[r0:r1, c0:c1] = img[sr:sr + r1 - r0, sc:sc + c1 - c0]
+        if off is not None:
+            with spans.span("band.blit"):
+                sr, sc = off
+                out[r0:r1, c0:c1] = img[sr:sr + r1 - r0, sc:sc + c1 - c0]
             done += 1
             progress("composite", 0.30 + 0.60 * done / total)
             continue
-        taps = [torch.from_numpy(a).to(device)
-                for a in (w.ri0, w.rw, w.ci0, w.cw)]
-        region = torch.empty((w.chunk, w.n_cols, channels), dtype=torch.uint8,
-                             device=device)
-        launch = cuda_resize.WindowLauncher(
-            *taps, region, (w.crop_rows, w.disp_w, channels))
+        with spans.span("band.prepare") as s:
+            w = WindowPlan(p, plan.filter, band_rows)
+            taps = [torch.from_numpy(a).to(device)
+                    for a in (w.ri0, w.rw, w.ci0, w.cw)]
+            region = torch.empty((w.chunk, w.n_cols, channels),
+                                 dtype=torch.uint8, device=device)
+            launch = cuda_resize.WindowLauncher(
+                *taps, region, (w.crop_rows, w.disp_w, channels))
         for g in range(w.n_chunks):
-            a, valid, s_lo = w.chunk_window(g)
-            crop = torch.from_numpy(w.stage_crop(img, g)).to(device)
-            launch(crop, a, s_lo, valid)
+            with spans.span("band.crop", start_ns=s.end_ns) as s:
+                a, valid, s_lo = w.chunk_window(g)
+                host = w.stage_crop(img, g)
+                s.counts = {"bytes": host.nbytes}
+            with spans.span("band.h2d", start_ns=s.end_ns) as s:
+                crop = torch.from_numpy(host).to(device)
+                s.counts = {"bytes": crop.nbytes}
+            with spans.span("band.draw", start_ns=s.end_ns) as s:
+                launch(crop, a, s_lo, valid)
             # .cpu() waits for the kernel, so the next chunk may reuse the
             # region buffer (a non-blocking readback would need two)
-            out[r0 + a:r0 + a + valid, c0:c1] = region[:valid].cpu().numpy()
+            with spans.span("band.readback", start_ns=s.end_ns) as s:
+                out[r0 + a:r0 + a + valid, c0:c1] = \
+                    region[:valid].cpu().numpy()
             uploaded += crop.nbytes
             done += 1
             progress("composite", 0.30 + 0.60 * done / total)
@@ -365,7 +393,7 @@ def _run_banded(plan: LayoutPlan, images: Sequence[np.ndarray],
     """Orient on the host, then the kernel path (``auto``/``cuda``) or the
     plain executor (``torch``)."""
     job_channels(plan, images)
-    with spans.span("banded"):
+    with spans.span("banded") as banded:
         oriented = [geometry.orient_array(source_array(raw, p, channels),
                                           p.orientation)
                     for raw, p in zip(images, plan.placements)]
@@ -373,7 +401,7 @@ def _run_banded(plan: LayoutPlan, images: Sequence[np.ndarray],
             return _BandedExecutor(plan, band_rows, channels,
                                    device).run(oriented, progress)
         return _run_banded_kernel(plan, oriented, channels, band_rows,
-                                  device, progress)
+                                  device, progress, banded)
 
 
 def _run_rung(strategy: str, band: Optional[int], plan: LayoutPlan,
