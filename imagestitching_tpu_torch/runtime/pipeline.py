@@ -52,8 +52,8 @@ import os
 import tempfile
 import time
 import traceback
-from typing import (Callable, List, NamedTuple, Optional, Sequence,
-                    Tuple, Union)
+from typing import (Callable, Collection, List, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -218,10 +218,52 @@ def _run_streamed(plan: LayoutPlan, images: Sequence[np.ndarray],
     return canvas, uploaded
 
 
-def _host_canvas(plan: LayoutPlan, channels: int) -> np.ndarray:
+def _fill_uncovered(out: np.ndarray, plan: LayoutPlan,
+                    drawn: Collection[int]) -> int:
+    """Write ``plan``'s background into the HWC canvas ``out`` (1 or 3
+    channels) only where no non-empty rect of a ``drawn`` placement (by
+    index) lands, and return the bytes written.
+
+    The sweep of ``geometry.fill_uncovered``: the row bands between the
+    drawn rects' row boundaries, then the column gaps in each.  A grey
+    background is a memset; any other is copied from a template row, so
+    the inner loop runs over a gap's width and never over one pixel's
+    channels."""
+    h, w, channels = out.shape
+    bg = np.asarray(plan.background[:channels], np.uint8)
+    grey = bool((bg == bg[0]).all())
+    row = None
+    rects = [(p.row_span, p.col_span) for p in plan.placements
+             if p.index in drawn and p.row_span[1] > p.row_span[0]
+             and p.col_span[1] > p.col_span[0]]
+    breaks = sorted({0, h} | {r for rs, _ in rects for r in rs})
+    written = 0
+    for rs, re in zip(breaks, breaks[1:]):
+        c = 0
+        # the empty span at w closes the band: the gap after its last rect
+        for c0, c1 in sorted(cs for (r0, r1), cs in rects
+                             if r0 <= rs and re <= r1) + [(w, w)]:
+            if c0 > c:
+                if grey:
+                    out[rs:re, c:c0].fill(int(bg[0]))
+                else:
+                    if row is None:
+                        row = np.empty((w, channels), np.uint8)
+                        row[:] = bg
+                    out[rs:re, c:c0] = row[c:c0]
+                written += (re - rs) * (c0 - c) * channels
+            c = max(c, c1)
+    return written
+
+
+def _host_canvas(plan: LayoutPlan, channels: int,
+                 drawn: Collection[int]) -> Tuple[np.ndarray, int]:
+    """The banded rung's host canvas, the background written only where
+    no rect of a ``drawn`` placement lands (the rung overwrites every pixel
+    of those rects, so prefilling them is wasted bandwidth), and the bytes
+    of background written."""
     out = np.empty((plan.canvas_h, plan.canvas_w, channels), np.uint8)
-    out[:] = np.asarray(plan.background[:channels], np.uint8)
-    return out
+    return out, _fill_uncovered(out, plan, drawn)
 
 
 def _run_banded_kernel(plan: LayoutPlan, oriented: Sequence[np.ndarray],
@@ -240,7 +282,8 @@ def _run_banded_kernel(plan: LayoutPlan, oriented: Sequence[np.ndarray],
     uploaded)``.
 
     Each phase is a span under the caller's: ``band.fill`` (the host
-    canvas and its background); per identity placement ``band.blit``; per
+    canvas, and the background where no rect of ``work`` lands, its
+    ``bytes`` counted); per identity placement ``band.blit``; per
     resampled placement ``band.prepare`` (its ``WindowPlan``, the taps'
     upload and the launcher), then per chunk ``band.crop`` (the contiguous
     host copy of its source window), ``band.h2d``, ``band.draw`` and
@@ -259,8 +302,10 @@ def _run_banded_kernel(plan: LayoutPlan, oriented: Sequence[np.ndarray],
               for _, p, off in work]
     if banded is not None:
         banded.counts = {"chunks": sum(chunks), "band_rows": band_rows}
-    with spans.span("band.fill"):
-        out = _host_canvas(plan, channels)
+    with spans.span("band.fill") as s:
+        out, filled = _host_canvas(plan, channels,
+                                   {p.index for _, p, _ in work})
+        s.counts = {"bytes": filled}
     total = sum(max(1, n) for n in chunks)
     done = uploaded = 0
     for img, p, off in work:
@@ -359,7 +404,10 @@ class _BandedExecutor:
         """Composite the oriented HWC sources; returns ``(canvas, bytes
         uploaded)``."""
         plan, dev = self.plan, self.device
-        out = _host_canvas(plan, self.channels)
+        out, _ = _host_canvas(plan, self.channels,
+                              {p.index for p, w in zip(plan.placements,
+                                                       self.work)
+                               if w is not None})
         bands = tiler.band_ranges(plan, self.band_rows)
         uploaded = 0
         for bi, (lo, hi) in enumerate(bands):

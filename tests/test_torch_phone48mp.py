@@ -14,7 +14,8 @@ ones up.  Without the cap the landscape sources are identity copies (host
 blits).  Each canvas is held to the float64 reference of its own sources
 (``stitchbench/reference/``: within 1 uint8 step on resampled values,
 exact on copies and background), and the rung's ``band.*`` spans are
-checked: their tree, their back-to-back boundaries and their counts.
+checked: their tree, their back-to-back boundaries and their counts, the
+fill's ``bytes`` the area no placement covers.
 """
 
 import os
@@ -165,10 +166,18 @@ def test_band_spans(case, limits, side):
         assert [r.name for r in run[1:]] == list(CHUNK) * n
         assert all(b.start_ns == a.end_ns for a, b in zip(run, run[1:]))
         i += 1 + 4 * n
+    # the fill writes the background only where no placement lands
+    (fill,) = [r for r in band if r.name == "band.fill"]
+    bare = np.ones((plan.canvas_h, plan.canvas_w), bool)
+    for p in plan.placements:
+        bare[slice(*p.row_span), slice(*p.col_span)] = False
+    assert fill.counts == {"bytes": int(bare.sum()) * 3}
+    if limits is not None:
+        assert 0 < fill.counts["bytes"] < plan.canvas_h * plan.canvas_w * 3
     for r in band:
         if r.name in ("band.crop", "band.h2d"):
             assert r.counts["bytes"] > 0
-        else:
+        elif r.name != "band.fill":
             assert r.counts is None
     crops = [r.counts["bytes"] for r in band if r.name == "band.crop"]
     assert crops == [r.counts["bytes"] for r in band if r.name == "band.h2d"]
