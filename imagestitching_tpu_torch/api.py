@@ -322,7 +322,9 @@ def stitch(items: Sequence[ImageInput],
 
     The call is one root span, ``stitch``, with a job id of its own; each
     decode of the overlapped path is a ``decode`` span under it, on the
-    decode pool's thread.
+    decode pool's thread; on the plain path, ``prepare`` (the decode pool
+    until every image is in) is the span under it that ``prepare_s``
+    reads, and the rung's and the readback's spans follow it.
     """
     with spans.span("stitch", job=spans.new_job()):
         return _stitch(items, direction, mode, gap, options, config, limits,
@@ -374,9 +376,9 @@ def _stitch(items, direction, mode, gap, options, config, limits, on_error,
         # unprobeable input (needs transcode to even read the header):
         # fall through to the plain flow
 
-    t0 = time.perf_counter()
-    images, specs, failures = prepare(items, config, on_error, progress)
-    prepare_s = time.perf_counter() - t0
+    with spans.span("prepare") as s:
+        images, specs, failures = prepare(items, config, on_error, progress)
+    prepare_s = (s.end_ns - s.start_ns) / 1e9
     if not images:
         if failures:
             raise RuntimeError(

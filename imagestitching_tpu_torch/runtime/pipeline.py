@@ -36,11 +36,14 @@ resident and streamed rungs; an OOM demotes it to the banded rung.
 
 Each phase is a span (:mod:`.spans`): ``plan``; per staged source
 ``stage.slot_wait``, ``stage.pin_copy``, ``stage.enqueue``, ``draw`` and
-``stage.fence``, back to back; ``drain``; ``readback`` with the pages it
-made resident and the blocks by which torch's pinned-host pool grew;
-``streamed`` / ``banded`` at those rungs' entries; and under ``banded`` on
-the kernel path the ``band.*`` phases of :func:`_run_banded_kernel`.
-``StitchMetrics``' overlapped timings are sums of the same clock readings.
+``stage.fence``, back to back; ``drain``; ``readback`` (in
+:func:`run_overlapped` and :func:`run`) with the pages it made resident
+and the blocks by which torch's pinned-host pool grew; ``streamed`` /
+``banded`` at those rungs' entries; under ``streamed`` the ``stream.*``
+phases of :func:`_run_streamed`; and under ``banded`` on the kernel path
+the ``band.*`` phases of :func:`_run_banded_kernel`.  ``StitchMetrics``'
+overlapped timings and ``readback_s`` are sums of the same clock
+readings.
 """
 
 from __future__ import annotations
@@ -196,25 +199,43 @@ def _run_streamed(plan: LayoutPlan, images: Sequence[np.ndarray],
     The fence waits for the device once the staged bytes pass
     :func:`_fence_limit`.  While uploads are synchronous to the host,
     sources cannot pile up and a fence only waits for the kernels; it
-    bounds the sources in flight once uploads are not."""
+    bounds the sources in flight once uploads are not.
+
+    The rung is one ``streamed`` span, counting the ``fences`` that fired.
+    Under it each drawn source is ``stream.h2d`` (the pageable upload, its
+    ``bytes``; on a CUDA device the copy first waits for the work queued
+    before it) and ``stream.draw`` (#1's launch or the oriented copy), then
+    ``stream.fence`` where the fence fires, back to back from the first
+    upload's start."""
     job_channels(plan, images)
-    steps = cuda_resize.plan_steps(plan, device)
-    canvas = new_canvas(plan, channels, device)
-    fence_limit = _fence_limit(plan, channels, config)
-    plain = config.engine == "torch"
-    inflight = uploaded = 0
-    n = len(images)
-    for i, (raw, p, step) in enumerate(zip(images, plan.placements, steps)):
-        if step is not None:
-            src = source_tensor(raw, p, channels, device)
-            cuda_resize.draw_placement(src, p, step, canvas, plain)
-            uploaded += src.nbytes
-            inflight += src.nbytes
-            if inflight > fence_limit:
-                if device.type == "cuda":
-                    torch.cuda.current_stream(device).synchronize()
-                inflight = 0
-        progress("composite", 0.30 + 0.60 * (i + 1) / n)
+    with spans.span("streamed") as streamed:
+        steps = cuda_resize.plan_steps(plan, device)
+        canvas = new_canvas(plan, channels, device)
+        fence_limit = _fence_limit(plan, channels, config)
+        plain = config.engine == "torch"
+        inflight = uploaded = fences = 0
+        n = len(images)
+        end_ns = None
+        for i, (raw, p, step) in enumerate(zip(images, plan.placements,
+                                               steps)):
+            if step is not None:
+                with spans.span("stream.h2d", start_ns=end_ns) as s:
+                    src = source_tensor(raw, p, channels, device)
+                    s.counts = {"bytes": src.nbytes}
+                with spans.span("stream.draw", start_ns=s.end_ns) as s:
+                    cuda_resize.draw_placement(src, p, step, canvas, plain)
+                end_ns = s.end_ns
+                uploaded += src.nbytes
+                inflight += src.nbytes
+                if inflight > fence_limit:
+                    with spans.span("stream.fence", start_ns=end_ns) as s:
+                        if device.type == "cuda":
+                            torch.cuda.current_stream(device).synchronize()
+                    end_ns = s.end_ns
+                    fences += 1
+                    inflight = 0
+            progress("composite", 0.30 + 0.60 * (i + 1) / n)
+        streamed.counts = {"fences": fences}
     return canvas, uploaded
 
 
@@ -466,9 +487,8 @@ def _run_rung(strategy: str, band: Optional[int], plan: LayoutPlan,
         return _run_banded(plan, images, channels, band, config.engine,
                            device, progress)
     if strategy == "streamed":
-        with spans.span("streamed"):
-            out, uploaded = _run_streamed(plan, images, channels, config,
-                                          device, progress)
+        out, uploaded = _run_streamed(plan, images, channels, config,
+                                      device, progress)
     else:
         out = cuda_resize.stitch(plan, images, device,
                                  plain=config.engine == "torch")
@@ -597,9 +617,10 @@ def run(plan: LayoutPlan, images: Sequence[np.ndarray],
             "stitch ran out of device memory on every strategy") from last_oom
     m.compute_s = time.perf_counter() - t0
     if isinstance(out, torch.Tensor) and not keep_on_device:
-        t1 = time.perf_counter()
-        out, _ = _read_back(out)
-        m.readback_s = time.perf_counter() - t1
+        with spans.span("readback", count_pages=True) as s:
+            out, pinned_new = _read_back(out)
+            s.counts = {"pinned_new": pinned_new}
+        m.readback_s = (s.end_ns - s.start_ns) / 1e9
     m.total_s = time.perf_counter() - t_start
     # m.strategy names the rung that won, after any demotion
     log.event("pipeline.done", strategy=m.strategy,

@@ -368,10 +368,10 @@ def test_cuda_readback_reuses_one_pinned_block(entry):
     assert after == before
     assert out.base.is_pinned()
     assert out.flags.c_contiguous and out.flags.writeable
-    if entry == "run_overlapped":
-        (readback,) = [r for r in records if r.name == "readback"
-                       and r.thread == threading.get_ident()]
-        assert readback.counts["pinned_new"] == 0
+    (readback,) = [r for r in records if r.name == "readback"
+                   and r.thread == threading.get_ident()]
+    assert readback.counts["pinned_new"] == 0
+    assert m.readback_s == (readback.end_ns - readback.start_ns) / 1e9
     (canvas, _), _ = _cuda_job(entry, keep_on_device=True)
     assert isinstance(canvas, torch.Tensor) and canvas.is_cuda
     pageable = canvas.cpu().numpy()
