@@ -24,9 +24,17 @@ that repeats one device) the unit runs on the calling thread.  Where they
 span several cards, each card's unit runs at once with the others on that
 card's worker thread (one long-lived thread per card, shared by every
 ``BatchedStitch`` of the process), and the call returns when every card is
-done.  The workers first-touch the pages of one fresh host array, each its
-own rows: a host whose memory manager serialises page faults serialises
-those readbacks.
+done.
+
+Where every shard lies on a CUDA device, the call's host array is a block
+of torch's caching pinned-host allocator (as ``runtime.pipeline._read_back``
+takes one for a job's canvas): each shard's readback is a copy into
+resident, locked pages, and the block (rounded up to a power of two) goes
+back to torch's cache, not to the OS, once every canvas of the call is
+dropped, so the next call of that size class reuses it.  A caller that
+keeps one canvas keeps the whole call's block pinned (up to 2 GiB for 64
+1080p jobs), and pinned memory is not swappable.  On the CPU the host array
+is a fresh ``np.empty``.
 
 PyTorch runs eagerly, so there is nothing to compile per batch size: the
 JAX class's ``jax.jit``, ``ensure_compile_cache`` and
@@ -47,7 +55,10 @@ its canvas and placements), then per device ``batch.sync`` (the wait for
 the kernels) and per shard ``batch.readback`` (the copy into the host
 array).  Each carries the count ``card``: the shard's index on the ``jobs``
 axis (0 without a mesh); a device's ``batch.sync`` carries its first
-shard's.
+shard's.  Before them, on the calling thread, ``batch.host`` takes the host
+array and counts ``pinned_new``: the blocks by which torch's pinned-host
+pool grew to hold it (its ``num_host_alloc``, counted over the whole
+process; 0 on the CPU).
 """
 
 from __future__ import annotations
@@ -119,6 +130,7 @@ class BatchedStitch:
             self._cards_of.setdefault(d, []).append(k)
         self._steps = {d: cuda_resize.plan_steps(plan, d)
                        for d in self._cards_of}
+        self._pinned = all(d.type == "cuda" for d in self._cards_of)
 
     @property
     def cards(self) -> int:
@@ -213,9 +225,13 @@ class BatchedStitch:
         (rows b to B are zero jobs); returns the (B, canvas_h, canvas_w, C)
         uint8 canvases.  Every check happens here, before the batch is
         split into shards (the JAX ``BatchedStitch.__call__``'s checks and
-        messages).  The host array is made here; each device's unit fills
-        its shards' rows, the cards of a mesh at once on their workers,
-        and every unit has stopped before this returns or raises."""
+        messages).  The host array is made here (``batch.host``): on CUDA
+        shards the numpy view of a block from torch's caching pinned-host
+        allocator, which every returned canvas keeps pinned until the last
+        of them is dropped; on the CPU a fresh array.  Each device's unit
+        fills its shards' rows, the cards of a mesh at once on their
+        workers, and every unit has stopped before this returns or
+        raises."""
         if len(stacked_images) != len(self.plan.placements):
             raise ValueError("image-slot count does not match plan")
         counts = sorted({len(s) for s in stacked_images})
@@ -244,8 +260,18 @@ class BatchedStitch:
                                      f"batch has {self.channels} (1 or 3, "
                                      f"equal)")
             slots.append(jobs)
-        host = np.empty((self.batch_size, self.plan.canvas_h,
-                         self.plan.canvas_w, self.channels), np.uint8)
+        shape = (self.batch_size, self.plan.canvas_h, self.plan.canvas_w,
+                 self.channels)
+        with spans.span("batch.host") as s:
+            if self._pinned:
+                allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+                host = torch.empty(shape, dtype=torch.uint8,
+                                   pin_memory=True).numpy()
+                s.counts = {"pinned_new": torch.cuda.host_memory_stats()[
+                    "num_host_alloc"] - allocs}
+            else:
+                host = np.empty(shape, np.uint8)
+                s.counts = {"pinned_new": 0}
         self._serve(slots, host)
         return host
 

@@ -11,6 +11,9 @@ identity-copy slots are exact; a batch of one equals the single-job path bit
 for bit, because both run the same placement loop and arithmetic.
 """
 
+import gc
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +28,7 @@ from imagestitching_tpu_torch.core.layout import ImageSpec, solve
 from imagestitching_tpu_torch.ops import cuda_resize
 from imagestitching_tpu_torch.parallel import batch
 from imagestitching_tpu_torch.parallel.mesh import make_mesh
+from imagestitching_tpu_torch.runtime import spans
 
 # name: ([(raw w, raw h, orientation)], options, channels)
 _CASES = {
@@ -238,6 +242,78 @@ def test_warm_runs_a_zero_batch():
     cpu = torch.device("cpu")
     assert bs._steps == {cpu: cuda_resize.plan_steps(plan, cpu)}
     assert bs._steps[cpu] is cuda_resize.plan_steps(plan, cpu)
+
+
+def _host_call(bs, slots):
+    """``bs(slots)`` inside a span of its own, and the call's
+    ``batch.host`` record."""
+    with spans.span("test.call") as call:
+        out = bs(slots)
+    records, _ = spans.snapshot(call.start_ns, call.end_ns)
+    (host,) = [r for r in records if r.name == "batch.host"
+               and r.parent == call.id]
+    return out, host
+
+
+@pytest.mark.parametrize("mesh", [None, ["cpu"] * 4,
+                                  [f"cpu:{k}" for k in range(4)]],
+                         ids=["one-device", "cpu-x4", "four-cpus"])
+@pytest.mark.parametrize("name", ["mixed", "gray"])
+def test_cpu_host_array_is_pageable(name, mesh, monkeypatch):
+    """On the CPU the call's host array asks for no pinned memory: a
+    writable, C-contiguous uint8 (B, H, W, C) array whose rows are the
+    jobs' canvases, taken in a ``batch.host`` span on the calling thread,
+    a direct child of the caller's span, that counts no pinned block."""
+    asked = []
+    empty = torch.empty
+
+    def spy(*a, **k):
+        asked.append(bool(k.get("pin_memory")))
+        return empty(*a, **k)
+
+    monkeypatch.setattr(torch, "empty", spy)
+    plan, stacks = _case(name, b=4)
+    kw = dict(device="cpu") if mesh is None else dict(
+        mesh=make_mesh(devices=mesh))
+    bs = batch.BatchedStitch(plan, 4, stacks[0].shape[3], **kw)
+    got, host = _host_call(bs, stacks)
+    assert not any(asked)
+    assert got.dtype == np.uint8
+    assert got.shape == (4, plan.canvas_h, plan.canvas_w,
+                         stacks[0].shape[3])
+    assert got.flags.c_contiguous and got.flags.writeable
+    for j in range(4):
+        single = cuda_resize.stitch(plan, [s[j] for s in stacks], "cpu")
+        np.testing.assert_array_equal(got[j], single.numpy())
+    assert host.counts == {"pinned_new": 0}
+    assert host.thread == threading.get_ident()
+
+
+@pytest.mark.cuda
+def test_cuda_host_array_reuses_one_pinned_block():
+    """Two calls of one batch size on the card, the first result dropped
+    in between: both land in pinned host memory, the second in the block
+    the first gave back (the pool does not grow, its ``batch.host`` counts
+    no fresh block), and the bytes equal a pageable readback of the same
+    jobs' canvases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a CPU batch is never pinned")
+    plan, stacks = _case("mixed", b=4)
+    bs = batch.BatchedStitch(plan, 4, device="cuda")
+    first, _ = _host_call(bs, stacks)
+    assert first.base.is_pinned()
+    del first
+    gc.collect()
+    before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    out, host = _host_call(bs, stacks)
+    after = torch.cuda.host_memory_stats()["num_host_alloc"]
+    assert after == before
+    assert host.counts == {"pinned_new": 0}
+    assert out.base.is_pinned()
+    assert out.flags.c_contiguous and out.flags.writeable
+    (canvas,) = bs.run_shards([[torch.from_numpy(a) for a in s]
+                               for s in stacks])
+    np.testing.assert_array_equal(out, canvas.cpu().numpy())
 
 
 def _wrapper_operands(b=3, c=3):

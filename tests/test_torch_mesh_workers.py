@@ -120,6 +120,19 @@ def test_card_spans_are_children_of_their_flush(served):
         assert seq == list(BATCH)
 
 
+def test_the_host_array_is_taken_once_on_the_server_thread(served):
+    """A flush takes its host array once, before any card's unit: one
+    ``batch.host`` span, a direct child of the flush on the server's
+    thread, counting its pinned blocks (none on the CPU) and no card."""
+    _, (_, records, server), *_ = served
+    (flush,) = [r for r in records if r.name == "serve.flush"]
+    (host,) = [r for r in records if r.name == "batch.host"]
+    assert host.parent == flush.span and host.thread == server
+    assert host.counts == {"pinned_new": 0}
+    assert all(host.end_ns <= r.start_ns for r in records
+               if r.name in BATCH)
+
+
 def test_repeated_device_keeps_the_serial_schedule(served):
     """A mesh that repeats one device counts one card and runs on the
     server's thread: every shard enqueued, one sync, every readback."""
@@ -212,8 +225,11 @@ def test_one_worker_a_card_across_flushes_and_objects():
                 got = bs(slots)
             records, _ = spans.snapshot(call.start_ns, call.end_ns)
             kids = [r for r in records if r.parent == call.id]
-            assert sorted((r.name, r.counts["card"]) for r in kids) == sorted(
+            assert sorted((r.name, r.counts["card"]) for r in kids
+                          if r.name in BATCH) == sorted(
                 (name, k) for name in BATCH for k in range(4))
+            assert [r.name for r in kids if r.name not in BATCH] == [
+                "batch.host"]
             want = batch.BatchedStitch(plan, b, engine="torch",
                                        device="cpu")(slots)
             assert got.tobytes() == want.tobytes()

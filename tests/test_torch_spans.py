@@ -171,22 +171,25 @@ def test_server_flush_and_jobs_record_their_spans():
         kids = [r for r in records if r.parent == f.span]
         names = [r.name for r in kids if not r.name.startswith("serve.q")
                  and r.name != "serve.resolve"]
-        assert names == ["serve.stack", "batch.h2d", "batch.draw",
-                         "batch.sync", "batch.readback"]
+        assert names == ["serve.stack", "batch.host", "batch.h2d",
+                         "batch.draw", "batch.sync", "batch.readback"]
         names = set(names)
         assert all(f.start_ns <= r.start_ns <= r.end_ns <= f.end_ns
                    for r in kids if r.name in names)
         (stack,) = [r for r in kids if r.name == "serve.stack"]
         assert stack.start_ns == f.start_ns
     # a one-device flush counts its jobs, no padding and one card, and its
-    # batch spans count card 0; no other server span counts anything
+    # batch spans count card 0; its CPU host array no pinned block; no
+    # other server span counts anything
     assert sum(f.counts["jobs"] for f in flushes.values()) == 6
     assert all(f.counts == {"jobs": f.counts["jobs"], "pad_jobs": 0,
                             "cards": 1} for f in flushes.values())
     assert all(r.counts == {"card": 0}
-               for r in records if r.name.startswith("batch."))
+               for r in records if r.name in _BATCH)
+    assert all(r.counts == {"pinned_new": 0}
+               for r in records if r.name == "batch.host")
     assert all(r.counts is None for r in records
-               if r.name not in ("serve.flush", *_BATCH))
+               if r.name not in ("serve.flush", "batch.host", *_BATCH))
     submits = [r for r in records if r.name == "serve.submit"]
     assert len(submits) == 6 and all(r.parent == 0 for r in submits)
     assert len({r.job for r in submits}) == 6
